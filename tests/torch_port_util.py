@@ -1,0 +1,81 @@
+"""Shared inputs for the tests that hold the PyTorch port against the JAX
+package: small scenes made from a numpy seed, handed to both sides."""
+import numpy as np
+import torch
+
+# 40 x 48 pixels: 3 x 3 tiles, with H not a multiple of 16
+H, W = 40, 48
+FX = FY = 48.0
+CX, CY = 24.0, 20.0
+TILES_X = 3
+N_TILES = 9
+
+
+def jax_cam():
+    from vtgaussian_slam_tpu.ops.camera import Camera
+    return Camera(height=H, width=W, fx=FX, fy=FY, cx=CX, cy=CY)
+
+
+def torch_cam():
+    from vtgaussian_slam_tpu_torch.ops.camera import Camera
+    return Camera(height=H, width=W, fx=FX, fy=FY, cx=CX, cy=CY)
+
+
+def scene_np(n=400, seed=0, logit_lo=-1.0, logit_hi=3.0, scale_lo=-3.2,
+             scale_hi=-2.2):
+    """Reference-format params (section_to_numpy_params keys) of n isotropic
+    Gaussians in front of the camera."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.5, 3.5, n)
+    u = rng.uniform(-4.0, W + 4.0, n)
+    v = rng.uniform(-4.0, H + 4.0, n)
+    means = np.stack([(u - CX) / FX * z, (v - CY) / FY * z, z], -1)
+    rot = np.tile(np.array([[1.0, 0, 0, 0]]), (n, 1))
+    return {
+        "means3D": means.astype(np.float32),
+        "rgb_colors": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        "unnorm_rotations": rot.astype(np.float32),
+        "logit_opacities": rng.uniform(logit_lo, logit_hi, (n, 1)).astype(
+            np.float32),
+        "log_scales": rng.uniform(scale_lo, scale_hi, (n, 1)).astype(
+            np.float32),
+        "cam_unnorm_rots": np.array([[[1.0], [0.0], [0.0], [0.0]]], np.float32),
+        "cam_trans": np.zeros((1, 3, 1), np.float32),
+    }
+
+
+def jax_params(p):
+    import jax.numpy as jnp
+    from vtgaussian_slam_tpu.models.gaussians import GaussianParams
+    return GaussianParams(
+        means3d=jnp.asarray(p["means3D"]), rgb_colors=jnp.asarray(p["rgb_colors"]),
+        unnorm_rotations=jnp.asarray(p["unnorm_rotations"]),
+        logit_opacities=jnp.asarray(p["logit_opacities"]),
+        log_scales=jnp.asarray(p["log_scales"]))
+
+
+def torch_params(p):
+    from vtgaussian_slam_tpu_torch.models.gaussians import GaussianParams
+    return GaussianParams(*[torch.as_tensor(np.asarray(p[k]).copy()) for k in (
+        "means3D", "rgb_colors", "unnorm_rotations", "logit_opacities",
+        "log_scales")])
+
+
+POSE_Q = np.array([0.999, 0.01, -0.02, 0.005], np.float32)
+POSE_T = np.array([0.02, -0.01, 0.03], np.float32)
+
+
+def np_(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_close_scaled(got, ref, rtol, what=""):
+    """|got - ref| <= rtol * max|ref| elementwise: for gradient sums whose
+    small entries are cancellations of large terms."""
+    got, ref = np_(got).astype(np.float64), np_(ref).astype(np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    scale = max(np.abs(ref).max(), 1e-12)
+    err = np.abs(got - ref).max()
+    assert err <= rtol * scale, f"{what}: max err {err:.3e} > {rtol} * {scale:.3e}"

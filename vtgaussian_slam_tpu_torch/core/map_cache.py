@@ -1,0 +1,199 @@
+"""Frozen-binning mapping renderer with inverse-map gradients.
+
+Parity: `vtgaussian_slam_tpu/core/map_cache.py`. Mapping trains only
+rgb / logit opacity / log scale (the means and rotations have zero mapping
+lr in every config) and keyframe poses are fixed, so each keyframe's tile
+tables, depth order and inverse map are built once (`build_kf_cache`) and
+reused. Per mapping iteration `splat_binned` is one autograd Function:
+slot gather from the (N, 8) field table -> K1 forward; backward: K3
+(row-major per-slot gradients) -> `apply_slot_inverse` (the scatter-free
+transpose of the gather).
+
+`MapCacheStore` keeps the per-keyframe caches of the current section with
+the JAX engine's refresh policy.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.gaussians import GaussianParams
+from ..ops import geometry as geo
+from ..ops.camera import Camera
+from ..ops.rasterizer.binning import (SlotInv, apply_slot_inverse,
+                                      bin_gaussians, gather_channels,
+                                      slot_inverse)
+from ..ops.rasterizer.cuda_splat import (assemble_image, splat_backward_vals_rows,
+                                         splat_forward)
+from ..ops.rasterizer.projection import project_gaussians
+from .losses import RenderResult
+from .track_cache import fields8
+
+
+class KFBinCache(NamedTuple):
+    tab: torch.Tensor       # (T, mpt) int64
+    counts: torch.Tensor    # (T,) int32
+    inv: SlotInv            # sorted inverse map
+    quat: torch.Tensor      # (4,) keyframe w2c rotation (unnormalized)
+    trans: torch.Tensor     # (3,)
+
+
+def pack_fields8(params: GaussianParams) -> torch.Tensor:
+    """The (N, 8) field table [means3d, logit_op, log_scale, rgb]."""
+    return fields8(params)
+
+
+def unpack_fields8(params: GaussianParams, f8: torch.Tensor) -> GaussianParams:
+    return params.replace(logit_opacities=f8[:, 3:4].contiguous(),
+                          log_scales=f8[:, 4:5].contiguous(),
+                          rgb_colors=f8[:, 5:8].contiguous())
+
+
+@torch.no_grad()
+def build_kf_cache(params: GaussianParams, active: torch.Tensor,
+                   cam_quat: torch.Tensor, cam_trans: torch.Tensor,
+                   cam: Camera, *, tile: int = 16, span_cap: int = 2,
+                   max_pairs_per_tile: int = 512,
+                   select: str = "depth") -> KFBinCache:
+    tiles_x = -(-cam.width // tile)
+    tiles_y = -(-cam.height // tile)
+    mpt = -(-max_pairs_per_tile // 128) * 128
+    R = geo.quat_to_rotmat(geo.normalize(cam_quat))
+    means_cam = params.means3d @ R.T + cam_trans
+    proj = project_gaussians(means_cam, params.unnorm_rotations,
+                             torch.exp(params.log_scales), params.opacities(),
+                             cam, active)
+    b = bin_gaussians(proj, tile, span_cap, tiles_x, tiles_y, mpt,
+                      with_inverse=True, select=select)
+    return KFBinCache(tab=b.tab, counts=b.counts, inv=slot_inverse(b.inv_pos),
+                      quat=cam_quat, trans=cam_trans)
+
+
+class SplatBinned(torch.autograd.Function):
+    """fields8 (M, 8) -> slot gather (frozen tab) -> K1 -> accum (T, 8, 256).
+    Backward: K3 rows -> inverse-map gather -> d fields8 (means columns
+    zero by construction); no pose gradient (mapping holds poses fixed)."""
+
+    @staticmethod
+    def forward(ctx, f8, tab, inv_pos, inv_w, quat, trans, counts, cam):
+        tiles_x = -(-cam.width // 16)
+        R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
+        slots = gather_channels(f8, tab)
+        accum = splat_forward(slots, R9, trans, counts, cam, tiles_x)
+        ctx.save_for_backward(slots, R9, trans, counts, accum, inv_pos, inv_w)
+        ctx.cam, ctx.M = cam, f8.shape[0]
+        return accum
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, R9, trans, counts, accum, inv_pos, inv_w = ctx.saved_tensors
+        tiles_x = -(-ctx.cam.width // 16)
+        rows = splat_backward_vals_rows(slots, R9, trans, counts, accum, g,
+                                        ctx.cam, tiles_x)          # (T, mpt, 8)
+        g_tail = apply_slot_inverse(rows.reshape(-1, 8), SlotInv(inv_pos, inv_w))
+        Ng = inv_pos.shape[0]
+        if Ng < ctx.M:
+            g_tail = torch.cat([g_tail.new_zeros((ctx.M - Ng, 8)), g_tail])
+        return g_tail, None, None, None, None, None, None, None
+
+
+def splat_binned(f8: torch.Tensor, tab: torch.Tensor, inv: SlotInv,
+                 quat: torch.Tensor, trans: torch.Tensor, counts: torch.Tensor,
+                 cam: Camera) -> torch.Tensor:
+    return SplatBinned.apply(f8, tab, inv.pos, inv.w, quat, trans, counts, cam)
+
+
+def accum_to_result(accum: torch.Tensor, cam: Camera, tile: int = 16
+                    ) -> RenderResult:
+    img = assemble_image(accum, cam, tile)
+    return RenderResult(im=img[:3], depth=img[3:4], silhouette=img[4],
+                        depth_sq=img[5:6], radii=img.new_zeros((1,)))
+
+
+def render_binned(f8: torch.Tensor, kfc: KFBinCache, cam: Camera
+                  ) -> RenderResult:
+    """Render the trainable section through one keyframe's frozen binning."""
+    return accum_to_result(splat_binned(f8, kfc.tab, kfc.inv, kfc.quat,
+                                        kfc.trans, kfc.counts, cam), cam)
+
+
+class MapCacheStore:
+    """Per-keyframe bin caches of the CURRENT section.
+
+    Policy (as the JAX engine's): the just-tracked frame's cache is built
+    fresh every mapping phase; per phase the `refresh` stalest other slots
+    are rebuilt (built with fewer gaussians than now, or STALE_AGE phases
+    ago); a shape change (capacity or pair budget) rebuilds every slot; when
+    the section has more keyframes than the W slots asked for, ring 0
+    stays and the oldest other slot is evicted. Slots are a Python list of
+    caches rather than one stacked buffer."""
+
+    STALE_AGE = 12
+
+    def __init__(self, refresh: int = 1, select: str = "depth"):
+        self.refresh = refresh
+        self.select = select
+        self.reset()
+
+    def reset(self):
+        self.slots: list[KFBinCache] = []
+        self.key = None
+        self.ring_of_slot: list[int] = []
+        self.built_n: list[int] = []
+        self.built_tick: list[int] = []
+        self.tick = 0
+        self.poses: dict[int, tuple] = {}
+
+    def _build(self, params, active, ring_idx, cam, span_cap, mpt):
+        quat, trans = self.poses[ring_idx]
+        return build_kf_cache(params, active, quat, trans, cam,
+                              span_cap=span_cap, max_pairs_per_tile=mpt,
+                              select=self.select)
+
+    def update(self, params, active, n_active: int, ring_idx: int, quat,
+               trans, cam, span_cap: int, mpt: int, W: int):
+        """Ensure caches exist for every registered keyframe of the section
+        and refresh stale slots. Returns (slots, slot -> ring ids, count)."""
+        self.poses[ring_idx] = (quat, trans)
+        self.tick += 1
+        key = (params.means3d.shape[0], mpt, cam.height, cam.width, W)
+        if self.key != key:
+            self.slots, self.ring_of_slot = [], []
+            self.built_n, self.built_tick = [], []
+            self.key = key
+        missing = [r for r in sorted(self.poses) if r not in self.ring_of_slot]
+        for r in missing:
+            self._admit(r, self._build(params, active, r, cam, span_cap, mpt),
+                        n_active, W)
+        for _ in range(self.refresh):
+            stale = [i for i, b in enumerate(self.built_n)
+                     if (b < n_active
+                         or self.tick - self.built_tick[i] >= self.STALE_AGE)
+                     and self.ring_of_slot[i] != ring_idx]
+            if not stale:
+                break
+            slot = min(stale, key=lambda i: (self.built_n[i],
+                                             self.built_tick[i]))
+            self.slots[slot] = self._build(params, active,
+                                           self.ring_of_slot[slot], cam,
+                                           span_cap, mpt)
+            self.built_n[slot] = n_active
+            self.built_tick[slot] = self.tick
+        return self.slots, list(self.ring_of_slot), len(self.ring_of_slot)
+
+    def _admit(self, ring_idx, built, n_active, W):
+        if len(self.ring_of_slot) < W:
+            self.ring_of_slot.append(ring_idx)
+            self.built_n.append(n_active)
+            self.built_tick.append(self.tick)
+            self.slots.append(built)
+            return
+        candidates = [i for i, r in enumerate(self.ring_of_slot)
+                      if r != 0] or list(range(len(self.ring_of_slot)))
+        slot = min(candidates, key=lambda i: self.ring_of_slot[i])
+        self.poses.pop(self.ring_of_slot[slot], None)
+        self.ring_of_slot[slot] = ring_idx
+        self.built_n[slot] = n_active
+        self.built_tick[slot] = self.tick
+        self.slots[slot] = built

@@ -1,0 +1,117 @@
+"""Camera tracking: one frame's pose optimization.
+
+Parity: `vtgaussian_slam_tpu/core/tracking.py` (`track_loop`,
+`track_frame_cached`, metric "loss"). A fresh Adam per frame on
+(quat, trans); each iteration renders, takes the masked loss and its pose
+gradient, steps, and keeps the post-step pose of the lowest PRE-step loss
+as the best candidate. The adaptive silhouette threshold is picked on the
+frame's first iteration (count == 0) and carried. Best-candidate
+bookkeeping stays on the device: the loop never waits on a host read.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ..ops.camera import Camera
+from .losses import Frame, LossConfig, loss_from_render
+
+
+class TrackingConfig(NamedTuple):
+    num_iters: int
+    lr_quat: float
+    lr_trans: float
+    metric: str            # "loss" (the boundary "p2p" metric: later slice)
+    loss_cfg: LossConfig
+
+
+@dataclass
+class TrackState:
+    quat: torch.Tensor
+    trans: torch.Tensor
+    m: torch.Tensor            # Adam first moment (7,) = [quat, trans]
+    v: torch.Tensor
+    count: int
+    best_quat: torch.Tensor
+    best_trans: torch.Tensor
+    min_metric: torch.Tensor
+    min_loss: torch.Tensor
+    sil_thres: torch.Tensor
+    im_loss: torch.Tensor
+    depth_loss: torch.Tensor
+
+
+def init_track_state(quat: torch.Tensor, trans: torch.Tensor,
+                     sil_thres: float) -> TrackState:
+    z7 = quat.new_zeros((7,))
+    big = quat.new_tensor(1e20)
+    return TrackState(quat=quat.detach().clone(), trans=trans.detach().clone(),
+                      m=z7, v=z7.clone(), count=0, best_quat=quat.detach(),
+                      best_trans=trans.detach(), min_metric=big, min_loss=big,
+                      sil_thres=quat.new_tensor(sil_thres),
+                      im_loss=quat.new_zeros(()), depth_loss=quat.new_zeros(()))
+
+
+def track_loop(render_fn, state: TrackState, frame: Frame,
+               aux_mask: torch.Tensor | None, cfg: TrackingConfig):
+    """The tracking optimization loop over a pose-differentiable renderer
+    `render_fn(quat, trans) -> RenderResult`. Returns (state, im_hist,
+    depth_hist) with the per-iteration loss streams."""
+    if cfg.metric != "loss":
+        raise NotImplementedError(
+            "the boundary p2p metric arrives with section boundaries")
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    dev = state.quat.device
+    lr = torch.cat([torch.full((4,), cfg.lr_quat), torch.full((3,), cfg.lr_trans)]
+                   ).to(device=dev, dtype=state.quat.dtype)
+    im_h = torch.zeros((cfg.num_iters,), device=dev)
+    d_h = torch.zeros((cfg.num_iters,), device=dev)
+    s = state
+    for i in range(cfg.num_iters):
+        quat = s.quat.detach().requires_grad_(True)
+        trans = s.trans.detach().requires_grad_(True)
+        r = render_fn(quat, trans)
+        out = loss_from_render(r, frame, cfg.loss_cfg, s.sil_thres,
+                               s.count == 0, aux_mask)
+        gq, gt = torch.autograd.grad(out.loss, (quat, trans))
+        with torch.no_grad():
+            g = torch.cat([gq, gt])
+            count = s.count + 1
+            t = torch.tensor(float(count), dtype=torch.float32)
+            bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
+            bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
+            m = b1 * s.m + (1 - b1) * g
+            v = b2 * s.v + (1 - b2) * g * g
+            upd = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            pose = torch.cat([s.quat, s.trans]) - upd
+            new_quat, new_trans = pose[:4], pose[4:]
+            loss = out.loss.detach()
+            better = loss < s.min_metric
+            lower = loss < s.min_loss
+            s = TrackState(
+                quat=new_quat, trans=new_trans, m=m, v=v, count=count,
+                best_quat=torch.where(better, new_quat, s.best_quat),
+                best_trans=torch.where(better, new_trans, s.best_trans),
+                min_metric=torch.where(better, loss, s.min_metric),
+                min_loss=torch.where(lower, loss, s.min_loss),
+                sil_thres=out.sil_thres_out.detach(),
+                im_loss=out.im_loss.detach(),
+                depth_loss=out.depth_loss.detach())
+            im_h[i] = s.im_loss
+            d_h[i] = s.depth_loss
+    return s, im_h, d_h
+
+
+def track_frame_cached(cache, state: TrackState, frame: Frame,
+                       aux_mask: torch.Tensor | None, cam: Camera,
+                       cfg: TrackingConfig):
+    """`track_loop` over the frozen-binning renderer (core/track_cache.py):
+    one K1 and one K2 launch per iteration."""
+    from .track_cache import render_cached
+
+    def render_fn(quat, trans):
+        return render_cached(cache, quat, trans, cam)
+
+    return track_loop(render_fn, state, frame, aux_mask, cfg)

@@ -1,0 +1,120 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into `build/lib<name>_<hash>.so`
+(a plain C interface, no PyTorch headers, so a build takes seconds). The
+hash covers the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded. `build_all` starts one nvcc per source at
+once. Nothing is built when a module is imported: the first launch on a
+CUDA tensor builds what is missing.
+
+Every exported C function launches on the stream it is given, allocates
+nothing and returns `cudaGetLastError()`; `check` turns a non-zero code
+into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD = _PKG.parent / "build"
+SOURCES = ("splat", "blend")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# exported symbol -> ctypes argument types (pointers and the stream as
+# c_void_p: a default int argument would cut a 64-bit pointer)
+SIGNATURES = {
+    "splat": {
+        "vtgs_splat_fwd": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+        "vtgs_splat_bwd_pose": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+        "vtgs_splat_bwd_vals_rows": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
+                                     _VP),
+    },
+    "blend": {
+        "vtgs_blend_fwd": (_VP, _VP, _I, _I, _I, _I, _VP, _VP),
+    },
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{name}_{h}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every missing library, one nvcc per source, all at once.
+    Returns the wall seconds; nvcc's output (register and shared-memory
+    use per kernel) lands in BUILD_LOG."""
+    t0 = time.time()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return time.time() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.vtgs_error_string.argtypes = [ctypes.c_int]
+        lib.vtgs_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.vtgs_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)

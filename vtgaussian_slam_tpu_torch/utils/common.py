@@ -1,0 +1,32 @@
+"""Seeding and device selection.
+
+Parity: `vtgaussian_slam_tpu/utils/common.py` (seed_everything). The port
+keeps explicit `torch.Generator`s for every random draw; the global seeds
+here only cover host-side numpy/python choices.
+"""
+from __future__ import annotations
+
+import os
+import random
+
+import numpy as np
+import torch
+
+
+def seed_everything(seed: int = 42) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    print(f"Seed set to: {seed} (type: {type(seed)})")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. CUDA unless the caller asks for
+    the CPU; a missing card is an error, never a silent CPU run."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels")
+    return dev
