@@ -20,7 +20,9 @@ Phases (any failure raises and the exit code is non-zero):
      on 128 tiles (the 64 fullest + 64 random), with the tolerance stated;
      then the kernel's median time (CUDA events) at the full shapes, the
      plain version's time over all tiles (in tile batches), and the
-     least time the card could take for the same work;
+     least time the card could take for the same work (the pairs and
+     slots these inputs make the kernel walk and blend, read from the
+     plain walk's masks; see FLOPS_WALKED);
   4. a `{"kernels": [...]}` line; the card line; and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -44,10 +46,25 @@ MAP_ITERS = 100       # room0 mapping num_iters
 # cores; the kernels do fp32 vector math and exp.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# fp32 operations counted per (pixel, slot) pair walked and per slot
-# projected (the arithmetic of csrc/splat.cu and csrc/blend.cu, exp as one)
-FLOPS_PAIR = {"K1": 30, "K2": 64, "K3": 60, "K4": 30}
-FLOPS_SLOT = {"K1": 70, "K2": 200, "K3": 130, "K4": 0}
+# fp32 operations of csrc/splat.cu and csrc/blend.cu, counted as the peak
+# counts them: an add, multiply, min/max or compare is one, a fused
+# multiply-add two (67e12 = 132 SMs x 128 lanes x 2 x 1.98 GHz). exp, a
+# reciprocal or a division counts one, though the card issues them at a
+# quarter of the fp32 rate, so the count stays a floor. Per pair a pixel
+# walks (its slot is live and the pixel still open): dx, dy, the power (9),
+# exp, opacity x exp, the alpha clamp and the two cuts -> 16. Per pair that
+# is blended (kept and before the stop), on top of that:
+#   K1: T update and stop test (3), weight, 6 channel sums (11)      -> 15
+#   K2: T and stop (3), weight, g.c (11), H (2), d alpha (6), d power,
+#       the 6 moment terms (9) and their 6 pixel sums                -> 39
+#   K3: the same up to d power (24), 7 terms (9) and their 7 sums    -> 40
+#   K4: T and stop (3), weight, 8 channel sums (16)                  -> 20
+# Per slot some pixel walks: the projection (72; K1 and both backwards)
+# and the backward's chain: K2 conic + Jacobian + mean chain and the 12
+# pose sums (+118), K3 conic chain and the d logit / d log-scale (+35).
+FLOPS_WALKED = {"K1": 16, "K2": 16, "K3": 16, "K4": 16}
+FLOPS_BLENDED = {"K1": 15, "K2": 39, "K3": 40, "K4": 20}
+FLOPS_SLOT = {"K1": 72, "K2": 190, "K3": 107, "K4": 0}
 MAX_SCALED_ERR = 2e-2   # see check_close
 
 
@@ -137,49 +154,36 @@ def check_close(name, got, ref, bulk):
     return abs_err
 
 
-def splat_pairs(slots8, counts, cp, tiles_x):
-    """(pixel, slot) pairs the data needs walked: slot j < count and the
-    pixel still open when it reaches j (T before the slot >= 1e-4)."""
-    import torch
-
+def splat_work(slots8, counts, cp, tiles_x):
+    """(pairs walked, pairs blended, slots walked) of the splat kernels on
+    these inputs, from the plain walk's masks."""
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
-    tot = 0
-    slot = torch.arange(slots8.shape[2], device="cuda")[None, None]
+    walked = blended = slots = 0
     for ids in batched(slots8.shape[0], 128):
         w = cs._walk(slots8[ids], counts[ids], cp, tiles_x, ids)
-        live = (w["T_in"] >= cs.T_TERMINATE) & (
-            slot < counts[ids][:, None, None])
-        tot += int(live.sum())
-    return tot
+        walked += int(w["walked"].sum())
+        blended += int((w["keep"] & w["include"]).sum())
+        slots += int(w["walked"].any(1).sum())
+    return walked, blended, slots
 
 
-def blend_pairs(recs, counts, tiles_x):
-    import torch
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.blend import (
-        ALPHA_MAX, ALPHA_MIN, T_TERMINATE)
-    tot = 0
-    M = recs.shape[2]
+def blend_work(recs, counts, tiles_x):
+    """(pairs walked, pairs blended, records walked) of the blend kernel on
+    these inputs, from the plain walk's masks."""
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
+    walked = blended = slots = 0
     for ids in batched(recs.shape[0], 128):
-        r = recs[ids]
-        lin = torch.arange(256, device="cuda")
-        px = ((ids % tiles_x)[:, None] * 16 + lin % 16).float()[..., None]
-        py = ((ids // tiles_x)[:, None] * 16 + lin // 16).float()[..., None]
-        dx, dy = px - r[:, None, 0], py - r[:, None, 1]
-        power = (-0.5 * (r[:, None, 2] * dx * dx + r[:, None, 4] * dy * dy)
-                 - r[:, None, 3] * dx * dy)
-        alpha = torch.clamp(r[:, None, 5] * torch.exp(power), max=ALPHA_MAX)
-        live_slot = torch.arange(M, device="cuda")[None, None] < \
-            counts[ids][:, None, None]
-        keep = (power <= 0) & (alpha >= ALPHA_MIN) & live_slot
-        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
-        Ta = torch.cumprod(1 - alpha, -1)
-        T_in = torch.cat([torch.ones_like(Ta[..., :1]), Ta[..., :-1]], -1)
-        tot += int(((T_in >= T_TERMINATE) & live_slot).sum())
-    return tot
+        w = cb._blend_walk(recs[ids], counts[ids], tiles_x, ids)
+        walked += int(w["walked"].sum())
+        blended += int(w["blended"].sum())
+        slots += int(w["walked"].any(1).sum())
+    return walked, blended, slots
 
 
-def bound(name, bytes_moved, pairs, slots):
-    flops = pairs * FLOPS_PAIR[name] + slots * FLOPS_SLOT[name]
+def bound(name, bytes_moved, work):
+    walked, blended, slots = work
+    flops = (walked * FLOPS_WALKED[name] + blended * FLOPS_BLENDED[name]
+             + slots * FLOPS_SLOT[name])
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -220,15 +224,17 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
 
     # ---- phase 2: the slice -------------------------------------------
-    from vtgaussian_slam_tpu_torch.core.losses import loss_from_render
+    from vtgaussian_slam_tpu_torch.core.losses import (RenderResult,
+                                                       loss_from_render,
+                                                       slam_records)
     from vtgaussian_slam_tpu_torch.core.map_cache import (accum_to_result,
                                                           pack_fields8)
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
     from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
     from vtgaussian_slam_tpu_torch.ops import geometry as geo
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import bin_gaussians
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.projection import \
-        project_gaussians
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
+        gather_channels
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.tiled import BLEND_CHANNELS
 
     config = room0_proxy_config()
     config["tracking"]["base1_num_iters"] = TRACK_ITERS
@@ -296,12 +302,11 @@ def main() -> int:
     tc = build_track_cache(sec.params, active, quat, trans, cam,
                            span_cap=bk["span_cap"],
                            max_pairs_per_tile=bk["max_pairs_per_tile"],
-                           select=engine._bin_select)
+                           chunk=bk["chunk"], select=engine._bin_select)
     slots_t, counts_t = tc.slots8, tc.counts
     accum_t = cs.splat_forward(slots_t, R9, trans, counts_t, cam, tiles_x)
     acc_v = accum_t.detach().requires_grad_(True)
     img = cs.assemble_image(acc_v, cam)
-    from vtgaussian_slam_tpu_torch.core.losses import RenderResult
     r = RenderResult(im=img[:3], depth=img[3:4], silhouette=img[4],
                      depth_sq=img[5:6], radii=tc.radii)
     out = loss_from_render(r, frame, engine._loss_cfg(True), 0.99, True)
@@ -312,8 +317,6 @@ def main() -> int:
     kfc = engine.map_store.slots[-1]
     f8 = pack_fields8(sec.params)
     kR9 = geo.quat_to_rotmat(geo.normalize(kfc.quat)).reshape(9)
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
-        gather_channels
     slots_m = gather_channels(f8, kfc.tab)
     accum_m = cs.splat_forward(slots_m, kR9, kfc.trans, kfc.counts, cam,
                                tiles_x)
@@ -327,22 +330,7 @@ def main() -> int:
     g_m = g_m.contiguous()
 
     # K4 inputs: the densify render's records at the committed pose
-    Rm = geo.quat_to_rotmat(geo.normalize(quat))
-    means_cam = sec.params.means3d @ Rm.T + trans
-    z = means_cam[:, 2]
-    colors6 = torch.cat([sec.params.rgb_colors,
-                         torch.stack([z, torch.ones_like(z), z * z], -1)], 1)
-    proj = project_gaussians(means_cam, sec.params.unnorm_rotations,
-                             torch.exp(sec.params.log_scales),
-                             sec.params.opacities(), cam, active)
-    mpt4 = -(-bk["max_pairs_per_tile"] // 128) * 128
-    binned = bin_gaussians(proj, 16, bk["span_cap"], tiles_x,
-                           -(-cam.height // 16), mpt4)
-    N = colors6.shape[0]
-    rec_src = torch.cat([proj.mean2d, proj.conic, proj.opacity[:, None],
-                         colors6, colors6.new_zeros((N, 4))], 1)
-    recs = rec_src[binned.tab].transpose(1, 2).contiguous()
-    counts4 = binned.counts
+    recs, counts4, _ = slam_records(sec.params, active, quat, trans, cam, bk)
 
     cp_t = cs.cp_vector(R9, trans, cam)
     cp_m = cs.cp_vector(kR9, kfc.trans, cam)
@@ -351,6 +339,7 @@ def main() -> int:
     print(f"[kernels] shapes: track slots {tuple(slots_t.shape)}, map slots "
           f"{tuple(slots_m.shape)}, densify records {tuple(recs.shape)}")
 
+    work_t = splat_work(slots_t, counts_t, cp_t, tiles_x)   # K1 and K2
     report = []
     specs = {
         "K1": dict(
@@ -361,10 +350,8 @@ def main() -> int:
             plain=lambda ids: cs.splat_forward_plain(
                 slots_t[ids], counts_t[ids], cp_t, tiles_x, ids),
             T=T_t, sub=lambda o, ids: o[ids].transpose(1, 2), tol=3e-4,
-            bytes=lambda: (int(counts_t.sum()) * 8 * 4 + T_t * 4
-                           + T_t * 8 * 256 * 4),
-            pairs=lambda: splat_pairs(slots_t, counts_t, cp_t, tiles_x),
-            slots=lambda: int(counts_t.sum())),
+            bytes=lambda s: s * 8 * 4 + T_t * 4 + T_t * 8 * 256 * 4,
+            work=lambda: work_t),
         "K2": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -374,10 +361,9 @@ def main() -> int:
                 slots_t[ids], counts_t[ids], cp_t, tiles_x, accum_t[ids],
                 g_t[ids], ids),
             T=T_t, sub=lambda o, ids: o[ids], tol=1e-3,
-            bytes=lambda: (int(counts_t.sum()) * 8 * 4 + T_t * 4
-                           + 2 * T_t * 8 * 256 * 4 + T_t * 12 * 4),
-            pairs=lambda: splat_pairs(slots_t, counts_t, cp_t, tiles_x),
-            slots=lambda: int(counts_t.sum())),
+            bytes=lambda s: (s * 8 * 4 + T_t * 4 + 2 * T_t * 8 * 256 * 4
+                             + T_t * 12 * 4),
+            work=lambda: work_t),
         "K3": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -388,21 +374,21 @@ def main() -> int:
                 slots_m[ids], kfc.counts[ids], cp_m, tiles_x, accum_m[ids],
                 g_m[ids], ids),
             T=T_m, sub=lambda o, ids: o[ids], tol=1e-3,
-            bytes=lambda: (int(kfc.counts.sum()) * 8 * 4 + T_m * 4
-                           + 2 * T_m * 8 * 256 * 4 + T_m * M_m * 8 * 4),
-            pairs=lambda: splat_pairs(slots_m, kfc.counts, cp_m, tiles_x),
-            slots=lambda: int(kfc.counts.sum())),
+            bytes=lambda s: (s * 8 * 4 + T_m * 4 + 2 * T_m * 8 * 256 * 4
+                             + T_m * M_m * 8 * 4),
+            work=lambda: splat_work(slots_m, kfc.counts, cp_m, tiles_x)),
         "K4": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:246",
-            kernel=lambda: cb.blend_forward(recs, counts4, tiles_x, 8),
-            plain=lambda ids: cb.blend_forward_plain(recs[ids], counts4[ids],
-                                                     tiles_x, 8, ids),
+            kernel=lambda: cb.blend_forward(recs, counts4, tiles_x,
+                                            BLEND_CHANNELS),
+            plain=lambda ids: cb.blend_forward_plain(
+                recs[ids], counts4[ids], tiles_x, BLEND_CHANNELS, ids),
             T=recs.shape[0], sub=lambda o, ids: o[ids], tol=3e-4,
-            bytes=lambda: (int(counts4.sum()) * 14 * 4 + recs.shape[0] * 4
-                           + recs.shape[0] * 256 * 8 * 4),
-            pairs=lambda: blend_pairs(recs, counts4, tiles_x),
-            slots=lambda: 0),
+            # records no pixel walks are not read: count the walked ones
+            bytes=lambda s: (s * (6 + BLEND_CHANNELS) * 4 + recs.shape[0] * 4
+                             + recs.shape[0] * 256 * BLEND_CHANNELS * 4),
+            work=lambda: blend_work(recs, counts4, tiles_x)),
     }
     counts_of = {"K1": counts_t, "K2": counts_t, "K3": kfc.counts,
                  "K4": counts4}
@@ -421,10 +407,12 @@ def main() -> int:
             for b in batched(sp["T"], 64):
                 sp["plain"](b)
         plain_ms = event_ms(plain_all, iters=1, warmup=1)
-        b_ms, b_by = bound(name, sp["bytes"](), sp["pairs"](), sp["slots"]())
+        work = sp["work"]()
+        b_ms, b_by = bound(name, sp["bytes"](work[2]), work)
         print(f"  {name}: {ms:.4f} ms (kernel, median) | plain {plain_ms:.2f} "
-              f"ms | bound {b_ms:.4f} ms ({b_by}) | launches on the slice "
-              f"{launches[name]}")
+              f"ms | bound {b_ms:.4f} ms ({b_by}; {work[0]} pairs walked, "
+              f"{work[1]} blended, {work[2]} slots walked) | launches on the "
+              f"slice {launches[name]}")
         report.append({"name": name, "route": sp["route"],
                        "source": sp["source"], "replaces": sp["replaces"],
                        "launches": launches[name], "max_abs_err": err,

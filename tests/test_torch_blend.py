@@ -57,12 +57,11 @@ def test_k4_matches_pallas(seed, dense):
 @pytest.mark.parametrize("span_cap,mpt", [(3, 128), (2, 256)])
 def test_render_tiled_matches_jax(span_cap, mpt):
     p = scene_np(700, 4)
-    bk = {"span_cap": span_cap, "max_pairs_per_tile": mpt, "chunk": 128,
-          "use_pallas": True}
+    bk = {"span_cap": span_cap, "max_pairs_per_tile": mpt, "chunk": 128}
     active = np.ones(700, bool)
     active[-50:] = False
     ref = j_render(jax_params(p), jnp.asarray(active), jnp.asarray(POSE_Q),
-                   jnp.asarray(POSE_T), jax_cam(), bk)
+                   jnp.asarray(POSE_T), jax_cam(), dict(bk, use_pallas=True))
     got = t_render(torch_params(p), torch.as_tensor(active),
                    torch.as_tensor(POSE_Q), torch.as_tensor(POSE_T),
                    torch_cam(), bk)
@@ -84,11 +83,12 @@ def test_render_tiled_five_channels_matches_jax():
     cols = rng.uniform(0, 1, (500, 5)).astype(np.float32)
     scales = np.exp(p["log_scales"]).astype(np.float32)
     op = (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32)
-    kw = dict(span_cap=3, max_pairs_per_tile=200, chunk=128, use_pallas=True)
+    kw = dict(span_cap=3, max_pairs_per_tile=200, chunk=128)
     ref_img, ref_r = j_rt(jnp.asarray(p["means3D"]),
                           jnp.asarray(p["unnorm_rotations"]),
                           jnp.asarray(scales), jnp.asarray(op),
-                          jnp.asarray(cols), jax_cam(), None, **kw)
+                          jnp.asarray(cols), jax_cam(), None, use_pallas=True,
+                          **kw)
     img, radii = t_rt(torch.as_tensor(p["means3D"]),
                       torch.as_tensor(p["unnorm_rotations"]),
                       torch.as_tensor(scales), torch.as_tensor(op),

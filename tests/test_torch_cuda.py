@@ -58,6 +58,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
+    p = scene_np(10, 0)
+    p["cam_unnorm_rots"] = np.ones((1, 4, 2), np.float32)
+    p["cam_trans"] = np.zeros((1, 3, 2), np.float32)
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.section_from_numpy_params(p)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.CameraTrajectory.create(2)
+    assert G.section_from_numpy_params(p, device="cpu")[0].n_active == 10
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VTGaussianSLAM({"data": {}, "baseframe_every": 2})

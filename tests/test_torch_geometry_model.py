@@ -127,7 +127,8 @@ def test_numpy_params_round_trip():
     p = scene_np(300, 1)
     sec_j, traj_j = JG.section_from_numpy_params(p, quantum=128)
     exported = JG.section_to_numpy_params(sec_j, traj_j)
-    sec, traj = TG.section_from_numpy_params(exported, quantum=128)
+    sec, traj = TG.section_from_numpy_params(exported, quantum=128,
+                                             device="cpu")
     assert sec.n_active == 300 and sec.capacity == int(sec_j.capacity)
     back = TG.section_to_numpy_params(sec, traj)
     for k, v in exported.items():

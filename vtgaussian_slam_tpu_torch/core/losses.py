@@ -18,7 +18,7 @@ import torch
 from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
-from ..ops.rasterizer.tiled import render_tiled
+from ..ops.rasterizer.tiled import blend_records, tile_records
 from ..ops.ssim import ssim
 
 SIL_THRES_CANDIDATES = (0.990, 0.993, 0.995, 0.997, 0.999)
@@ -55,21 +55,31 @@ class LossOutput(NamedTuple):
     sil_thres_out: torch.Tensor
 
 
-@torch.no_grad()
-def render_slam(params: GaussianParams, active: torch.Tensor,
-                cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
-                backend_kwargs: dict | None = None) -> RenderResult:
-    """Fused RGB + depth/silhouette render at a camera pose (forward only:
-    the slice's differentiable renders are the cached splat paths)."""
+def slam_records(params: GaussianParams, active: torch.Tensor,
+                 cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
+                 backend_kwargs: dict | None = None):
+    """`render_slam`'s blend inputs: the (r, g, b, z, 1, z^2) records per
+    tile at a camera pose, their counts and the radii (`tile_records`)."""
     q = geo.normalize(cam_quat)
     R = geo.quat_to_rotmat(q)
     means_cam = params.means3d @ R.T + cam_trans
     z = means_cam[:, 2]
     colors6 = torch.cat(
         [params.rgb_colors, torch.stack([z, torch.ones_like(z), z * z], -1)], 1)
-    img6, radii = render_tiled(
+    return tile_records(
         means_cam, params.unnorm_rotations, torch.exp(params.log_scales),
         params.opacities(), colors6, cam, active, **(backend_kwargs or {}))
+
+
+@torch.no_grad()
+def render_slam(params: GaussianParams, active: torch.Tensor,
+                cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
+                backend_kwargs: dict | None = None) -> RenderResult:
+    """Fused RGB + depth/silhouette render at a camera pose (forward only:
+    the slice's differentiable renders are the cached splat paths)."""
+    recs, counts, radii = slam_records(params, active, cam_quat, cam_trans,
+                                       cam, backend_kwargs)
+    img6 = blend_records(recs, counts, cam, 6)
     return RenderResult(im=img6[:3], depth=img6[3:4], silhouette=img6[4],
                         depth_sq=img6[5:6], radii=radii)
 

@@ -70,7 +70,7 @@ def eval_backend_kwargs(n: int, height: int, width: int, tpu_cfg: dict) -> dict:
     need = n * span * span // max(tiles, 1)
     while mpt < need and mpt * 2 <= cap:
         mpt *= 2
-    return {"use_pallas": True, "max_pairs_per_tile": mpt, "span_cap": span,
+    return {"max_pairs_per_tile": mpt, "span_cap": span,
             "chunk": tpu_cfg.get("blend_chunk", 128)}
 
 
@@ -141,11 +141,10 @@ class VTGaussianSLAM:
             self.num_frames = len(self.dataset)
         self.bfe = cfg["baseframe_every"]
         self.quantum = tpu["capacity_quantum"]
-        # the port renders through its kernels on every route
         self.backend_kwargs = {
             "span_cap": tpu["span_cap"],
             "max_pairs_per_tile": tpu["max_pairs_per_tile"],
-            "chunk": tpu["blend_chunk"], "use_pallas": True}
+            "chunk": tpu["blend_chunk"]}
         self.map_backend_kwargs = dict(
             self.backend_kwargs,
             max_pairs_per_tile=tpu.get("map_max_pairs_per_tile",

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.common import resolve_device
+
 DEFAULT_CAPACITY_QUANTUM = 1 << 15  # 32768
 
 PARAM_KEYS = (("means3D", "means3d"), ("rgb_colors", "rgb_colors"),
@@ -86,8 +88,9 @@ class CameraTrajectory:
     trans: torch.Tensor   # (T, 3) w2c translations
 
     @classmethod
-    def create(cls, num_frames: int, device="cpu",
+    def create(cls, num_frames: int, device="cuda",
                dtype=torch.float32) -> "CameraTrajectory":
+        device = resolve_device(device)
         q = torch.zeros((num_frames, 4), dtype=dtype, device=device)
         q[:, 0] = 1.0
         return cls(quats=q, trans=torch.zeros((num_frames, 3), dtype=dtype,
@@ -209,10 +212,11 @@ def section_to_numpy_params(section: Section, traj: CameraTrajectory) -> dict:
 
 
 def section_from_numpy_params(p: dict, quantum: int = DEFAULT_CAPACITY_QUANTUM,
-                              timestep: float = 0.0, device="cpu"
+                              timestep: float = 0.0, device="cuda"
                               ) -> tuple[Section, CameraTrajectory]:
     """Load a reference-format params dict (the JAX package's
-    `section_to_numpy_params` output) into a port Section."""
+    `section_to_numpy_params` output) into a port Section on `device`."""
+    device = resolve_device(device)
     n = np.asarray(p["means3D"]).shape[0]
     cap = round_capacity(n, quantum)
 

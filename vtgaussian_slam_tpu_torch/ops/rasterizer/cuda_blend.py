@@ -23,13 +23,12 @@ TILE = 16
 TPX = TILE * TILE
 
 
-def blend_forward_plain(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
-                        n_channels: int = 8, tile_ids=None) -> torch.Tensor:
-    """Plain K4, vectorised over (tiles, pixels, records)."""
+def _blend_walk(recs, counts, tiles_x, tile_ids):
+    """Every (tile, pixel, record) quantity of the front-to-back walk:
+    `walked` marks the pairs the kernel evaluates (the record is live and
+    the pixel still open when it reaches it), `weight` the blend weights."""
     T, _, M = recs.shape
     dev = recs.device
-    if tile_ids is None:
-        tile_ids = torch.arange(T, device=dev)
     lin = torch.arange(TPX, device=dev)
     px = ((tile_ids % tiles_x)[:, None] * TILE + lin % TILE).float()[..., None]
     py = ((tile_ids // tiles_x)[:, None] * TILE + lin // TILE).float()[..., None]
@@ -45,9 +44,19 @@ def blend_forward_plain(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     T_after = torch.cumprod(1.0 - alpha, dim=-1)
     T_in = torch.cat([torch.ones_like(T_after[..., :1]), T_after[..., :-1]], -1)
-    weight = torch.where(T_after >= T_TERMINATE, alpha * T_in,
-                         torch.zeros_like(alpha))
-    return torch.einsum("tpm,tcm->tpc", weight, recs[:, 6:6 + n_channels])
+    include = T_after >= T_TERMINATE
+    weight = torch.where(include, alpha * T_in, torch.zeros_like(alpha))
+    return dict(walked=in_count & (T_in >= T_TERMINATE), blended=keep & include,
+                weight=weight)
+
+
+def blend_forward_plain(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
+                        n_channels: int = 8, tile_ids=None) -> torch.Tensor:
+    """Plain K4, vectorised over (tiles, pixels, records)."""
+    if tile_ids is None:
+        tile_ids = torch.arange(recs.shape[0], device=recs.device)
+    w = _blend_walk(recs, counts, tiles_x, tile_ids)
+    return torch.einsum("tpm,tcm->tpc", w["weight"], recs[:, 6:6 + n_channels])
 
 
 def blend_forward(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,

@@ -122,9 +122,11 @@ def _walk(slots8, counts, cp, tiles_x, tile_ids):
     weight = torch.where(include, alpha * T_in, torch.zeros_like(alpha))
     cols = torch.stack([slots8[:, 5], slots8[:, 6], slots8[:, 7], q["z"],
                         torch.ones_like(q["z"]), q["z"] * q["z"]], 1)
+    # walked: pairs the kernels evaluate (slot live, pixel still open)
     return dict(q=q, dx=dx, dy=dy, expp=expp, alpha=alpha, clamped=clamped,
                 keep=keep, T_in=T_in, T_after=T_after, include=include,
-                weight=weight, cols=cols)
+                weight=weight, cols=cols,
+                walked=in_count & (T_in >= T_TERMINATE))
 
 
 def splat_forward_plain(slots8, counts, cp, tiles_x, tile_ids=None):
