@@ -14,16 +14,27 @@ Phases (any failure raises and the exit code is non-zero):
      into track / densify / map, n_active, pair budget, PSNR and depth L1 of
      a render at the committed pose; then the ATE. The kernel launch counts
      are zeroed just before this run and read just after it;
+  2b. the generic route: the same proxy with `tpu.track_cache` and
+     `tpu.map_binned` off, so tracking and mapping render from scratch
+     every iteration (project, bin, K4, and the backward K5 through the
+     inverse map and autograd); frame 0 + 2 tracked frames at the same
+     iteration budgets, printed beside the slice's times for the same
+     frames, under the same guards, with its own zeroed launch counts;
   3. each kernel against its plain PyTorch version on inputs captured from
-     the slice's final state (the track cache and its loss cotangent, one
-     mapping keyframe cache and its cotangent, the densify render records),
-     on 128 tiles (the 64 fullest + 64 random), with the tolerance stated;
+     the two runs' final states (the track cache and its loss cotangent for
+     K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
+     the densify render records for K4, the generic route's records and its
+     mapping-loss cotangent for K5), on 128 tiles (the 64 fullest + 64
+     random), with the tolerance stated; K6, which no engine path launches,
+     also runs through `splat_blend(grad_mode="all")` under autograd, held
+     against the plain rows and against K2's dR, dt;
      then the kernel's median time (CUDA events) at the full shapes, the
      plain version's time over all tiles (in tile batches), and the
      least time the card could take for the same work (the pairs and
      slots these inputs make the kernel walk and blend, read from the
      plain walk's masks; see FLOPS_WALKED);
-  4. a `{"kernels": [...]}` line; the card line; and as the last line
+  4. a `{"kernels": [...]}` line (launches: the two engine runs' sum); the
+     card line; and as the last line
      `{"ok": true, "device": {...}}`.
 
 It needs one CUDA card and the repository checkout around it: without
@@ -39,6 +50,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NUM_FRAMES = 5
+GENERIC_FRAMES = 3    # frame 0 + 2 tracked frames on the generic route
 TRACK_ITERS = 80      # room0 base1_num_iters
 MAP_ITERS = 100       # room0 mapping num_iters
 
@@ -59,12 +71,20 @@ PEAK_FP32_FLOPS = 67e12
 #       the 6 moment terms (9) and their 6 pixel sums                -> 39
 #   K3: the same up to d power (24), 7 terms (9) and their 7 sums    -> 40
 #   K4: T and stop (3), weight, 8 channel sums (16)                  -> 20
-# Per slot some pixel walks: the projection (72; K1 and both backwards)
-# and the backward's chain: K2 conic + Jacobian + mean chain and the 12
-# pose sums (+118), K3 conic chain and the d logit / d log-scale (+35).
-FLOPS_WALKED = {"K1": 16, "K2": 16, "K3": 16, "K4": 16}
-FLOPS_BLENDED = {"K1": 15, "K2": 39, "K3": 40, "K4": 20}
-FLOPS_SLOT = {"K1": 72, "K2": 190, "K3": 107, "K4": 0}
+#   K5: T and stop (3), weight, g.c over 8 channels (16), H (2),
+#       d alpha (6), d power, the 5 moment terms (8), d opacity (1),
+#       8 colour terms (8) and their 14 pixel sums                   -> 60
+#   K6: K2's 39, plus d opacity (1), 3 colour terms (3) and their
+#       4 pixel sums                                                 -> 47
+# Per slot some pixel walks: the projection (72; K1 and the splat
+# backwards) and the backward's chain: K2 conic + Jacobian + mean chain
+# and the 12 pose sums (+118), K3 conic chain and the d logit / d
+# log-scale (+35), K6 K2's chain without the pose sums (+97) and the
+# d logit / d log-scale (+11); per record K5 walks, the moments -> mean2d
+# and conic rows (9).
+FLOPS_WALKED = {"K1": 16, "K2": 16, "K3": 16, "K4": 16, "K5": 16, "K6": 16}
+FLOPS_BLENDED = {"K1": 15, "K2": 39, "K3": 40, "K4": 20, "K5": 60, "K6": 47}
+FLOPS_SLOT = {"K1": 72, "K2": 190, "K3": 107, "K4": 0, "K5": 9, "K6": 180}
 MAX_SCALED_ERR = 2e-2   # see check_close
 
 
@@ -88,6 +108,56 @@ def room0_proxy_config():
         densification_image_width=2400, start=0, end=-1, stride=1,
         num_frames=-1)
     return config
+
+
+def generic_route_config():
+    """The room0 proxy with the frozen-binning caches off: tracking and
+    mapping take the generic autodiff route (K4 forward, K5 backward)."""
+    config = room0_proxy_config()
+    config["tpu"]["track_cache"] = False
+    config["tpu"]["map_binned"] = False
+    return config
+
+
+def run_frames(engine, n, wrappers, valid0, tag):
+    """Drive `engine.process_frame` for frames 0..n-1 with every kernel
+    count zeroed just before and read just after; print the per-frame
+    split, quality and the guards, and return (launches, per-frame times)."""
+    import numpy as np
+    import torch
+    for w in wrappers.values():
+        w.launches = 0
+    rows = []
+    t_run = time.time()
+    for t in range(n):
+        engine.process_frame(t)
+        rows.append((t, engine.frame_times[t], engine.sections[0].n_active,
+                     engine.map_backend_kwargs["max_pairs_per_tile"]))
+    torch.cuda.synchronize()
+    run_s = time.time() - t_run
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[{tag}] {n} frames in {run_s:.2f} s; launches {launches}")
+    psnrs, l1s = [], []
+    for t, ft, n_act, mpt in rows:
+        psnr, l1 = engine.evaluate_frame(t)
+        psnrs.append(psnr)
+        l1s.append(l1)
+        print(f"[{tag} frame {t}] track {ft['track']:.3f} s densify "
+              f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active "
+              f"{n_act} | mpt {mpt} | PSNR {psnr:.2f} dB | depth L1 "
+              f"{l1 * 100:.3f} cm")
+    ate = engine.ate(n)
+    print(f"[{tag}] ATE {ate * 100:.4f} cm (bound < 5 cm); min PSNR "
+          f"{min(psnrs):.2f} dB (bound > 20 dB); n_active "
+          f"{engine.sections[0].n_active} (bound >= {valid0}); tracking "
+          f"tiles at the pair budget, max share "
+          f"{engine.stats['tile_truncation_frac_max']:.4f}")
+    vals = psnrs + l1s + [ate]
+    assert all(np.isfinite(v) for v in vals), vals
+    assert engine.sections[0].n_active >= valid0
+    assert ate < 0.05, ate
+    assert min(psnrs) > 20.0, psnrs
+    return launches, [ft for _, ft, _, _ in rows]
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -204,7 +274,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import numpy as np
 
     from vtgaussian_slam_tpu_torch.ops.rasterizer import _build
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
@@ -234,7 +303,8 @@ def main() -> int:
     from vtgaussian_slam_tpu_torch.ops import geometry as geo
     from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
         gather_channels
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.tiled import BLEND_CHANNELS
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.tiled import (BLEND_CHANNELS,
+                                                                blend_image)
 
     config = room0_proxy_config()
     config["tracking"]["base1_num_iters"] = TRACK_ITERS
@@ -248,41 +318,35 @@ def main() -> int:
           f"({valid0} valid frame-0 pixels), {engine.cam.height}x"
           f"{engine.cam.width}, baseframe_every {engine.bfe}")
     wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
-                "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward}
-    for w in wrappers.values():
-        w.launches = 0
-    rows = []
-    t_run = time.time()
-    for t in range(NUM_FRAMES):
-        engine.process_frame(t)
-        ft = engine.frame_times[t]
-        rows.append((t, ft, engine.sections[0].n_active,
-                     engine.map_backend_kwargs["max_pairs_per_tile"]))
-    torch.cuda.synchronize()
-    run_s = time.time() - t_run
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"[slice] {NUM_FRAMES} frames in {run_s:.2f} s; launches {launches}")
-    psnrs, l1s = [], []
-    for t, ft, n, mpt in rows:
-        psnr, l1 = engine.evaluate_frame(t)
-        psnrs.append(psnr)
-        l1s.append(l1)
-        print(f"[frame {t}] track {ft['track']:.3f} s densify "
-              f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active {n} | "
-              f"mpt {mpt} | PSNR {psnr:.2f} dB | depth L1 {l1 * 100:.3f} cm")
-    ate = engine.ate(NUM_FRAMES)
-    print(f"[slice] ATE {ate * 100:.4f} cm (bound < 5 cm); min PSNR "
-          f"{min(psnrs):.2f} dB (bound > 20 dB); n_active "
-          f"{engine.sections[0].n_active} (bound >= {valid0}); tracking "
-          f"tiles at the pair budget, max share "
-          f"{engine.stats['tile_truncation_frac_max']:.4f}")
-    vals = psnrs + l1s + [ate]
-    assert all(np.isfinite(v) for v in vals), vals
-    assert engine.sections[0].n_active >= valid0
-    assert ate < 0.05, ate
-    assert min(psnrs) > 20.0, psnrs
-    missing = [k for k, v in launches.items() if v <= 0]
+                "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
+                "K5": cb.blend_backward, "K6": cs.splat_backward_all}
+    launches1, times1 = run_frames(engine, NUM_FRAMES, wrappers, valid0,
+                                   "slice")
+    missing = [k for k in ("K1", "K2", "K3", "K4") if launches1[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+
+    # ---- phase 2b: the generic route ----------------------------------
+    config2 = generic_route_config()
+    config2["tracking"]["base1_num_iters"] = TRACK_ITERS
+    config2["mapping"]["num_iters"] = MAP_ITERS
+    t0 = time.time()
+    engine2 = VTGaussianSLAM(config2, device="cuda")
+    torch.cuda.synchronize()
+    assert not engine2.track_cached and not engine2.map_binned
+    print(f"[generic] init {time.time() - t0:.2f} s: "
+          f"{engine2.sections[0].n_active} gaussians; tracking and mapping "
+          f"render from scratch every iteration (K4 forward, K5 backward)")
+    print("[generic] the slice's route on the same frames: " + "; ".join(
+        f"frame {t} track {ft['track']:.3f} s densify {ft['densify']:.3f} s "
+        f"map {ft['map']:.3f} s" for t, ft in enumerate(times1[:GENERIC_FRAMES])))
+    launches2, _ = run_frames(engine2, GENERIC_FRAMES, wrappers, valid0,
+                              "generic")
+    missing = [k for k in ("K4", "K5") if launches2[k] <= 0]
+    assert not missing, f"kernels never launched on the generic route: {missing}"
+    launches = {k: launches1[k] + launches2[k] for k in wrappers}
+    print(f"[launches] slice {launches1}; generic route {launches2}; K6 "
+          f"launches on the engine paths: {launches['K6']} (no engine path "
+          f"calls splat_blend's \"all\" mode)")
 
     # ---- phase 3: kernels against plain, on the slice's inputs ---------
     cam = engine.cam
@@ -332,12 +396,55 @@ def main() -> int:
     # K4 inputs: the densify render's records at the committed pose
     recs, counts4, _ = slam_records(sec.params, active, quat, trans, cam, bk)
 
+    # K5 inputs: the generic route's records at its last committed pose and
+    # the mapping-loss cotangent of their blend
+    t2 = GENERIC_FRAMES - 1
+    sec2 = engine2.sections[0]
+    lcfg2 = engine2._loss_cfg(False)
+    recs5, counts5, radii5 = slam_records(
+        sec2.params, sec2.active_mask(), engine2.traj.quats[t2].clone(),
+        engine2.traj.trans[t2].clone(), cam, dict(lcfg2.backend_kwargs))
+    out5 = cb.blend_forward(recs5, counts5, tiles_x, BLEND_CHANNELS)
+    out_v = out5.detach().requires_grad_(True)
+    img5 = blend_image(out_v, cam, 6)
+    r5 = RenderResult(im=img5[:3], depth=img5[3:4], silhouette=img5[4],
+                      depth_sq=img5[5:6], radii=radii5)
+    frame2 = engine2._stage(*engine2.dataset[t2][:2])
+    out = loss_from_render(r5, frame2, lcfg2, 0.5, False)
+    (g5,) = torch.autograd.grad(out.loss, (out_v,))
+    g5 = g5.contiguous()
+
     cp_t = cs.cp_vector(R9, trans, cam)
     cp_m = cs.cp_vector(kR9, kfc.trans, cam)
     T_t, M_t = slots_t.shape[0], slots_t.shape[2]
     T_m, M_m = slots_m.shape[0], slots_m.shape[2]
     print(f"[kernels] shapes: track slots {tuple(slots_t.shape)}, map slots "
-          f"{tuple(slots_m.shape)}, densify records {tuple(recs.shape)}")
+          f"{tuple(slots_m.shape)}, densify records {tuple(recs.shape)}, "
+          f"generic-route records {tuple(recs5.shape)}")
+
+    # K6 through splat_blend(grad_mode="all") under autograd (K1 forward,
+    # K6 backward, dR / dt contracted and d mean rotated to world by the
+    # wrapper), on 128 tiles against the plain rows and in dR / dt against
+    # K2's in-kernel contraction of the same inputs
+    print("[K6] splat_blend(grad_mode=\"all\") under autograd")
+    sv = slots_t.detach().clone().requires_grad_(True)
+    Rv = R9.detach().clone().requires_grad_(True)
+    tv = trans.detach().clone().requires_grad_(True)
+    n6 = cs.splat_backward_all.launches
+    cs.splat_blend(sv, Rv, tv, counts_t, cam, tiles_x,
+                   grad_mode="all").backward(g_t)
+    assert cs.splat_backward_all.launches == n6 + 1
+    ids6 = pick_tiles(counts_t)
+    p6 = cs.splat_backward_all_plain(slots_t[ids6], counts_t[ids6], cp_t,
+                                     tiles_x, accum_t[ids6], g_t[ids6], ids6)
+    p6w = torch.cat([torch.einsum("ij,tjm->tim", R9.reshape(3, 3).T,
+                                  p6[:, :3]), p6[:, 3:]], 1)
+    check_close("K6 d slots (world)", sv.grad[ids6].transpose(1, 2),
+                p6w.transpose(1, 2), 1e-3)
+    pose2 = cs.splat_backward_pose(slots_t, R9, trans, counts_t, accum_t, g_t,
+                                   cam, tiles_x).sum(0)
+    check_close("K6 dR, dt vs K2", torch.cat([Rv.grad, tv.grad])[:, None],
+                pose2[:, None], 1e-3)
 
     work_t = splat_work(slots_t, counts_t, cp_t, tiles_x)   # K1 and K2
     report = []
@@ -389,9 +496,35 @@ def main() -> int:
             bytes=lambda s: (s * (6 + BLEND_CHANNELS) * 4 + recs.shape[0] * 4
                              + recs.shape[0] * 256 * BLEND_CHANNELS * 4),
             work=lambda: blend_work(recs, counts4, tiles_x)),
+        "K5": dict(
+            route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
+            replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:274",
+            kernel=lambda: cb.blend_backward(recs5, counts5, out5, g5,
+                                             tiles_x),
+            plain=lambda ids: cb.blend_backward_plain(
+                recs5[ids], counts5[ids], out5[ids], g5[ids], tiles_x, ids),
+            T=recs5.shape[0], sub=lambda o, ids: o[ids], tol=1e-3,
+            # walked records are read, every record row is written
+            bytes=lambda s: (s * (6 + BLEND_CHANNELS) * 4
+                             + recs5.shape[0] * 4
+                             + 2 * recs5.shape[0] * 256 * BLEND_CHANNELS * 4
+                             + recs5.shape[0] * recs5.shape[2] * 16 * 4),
+            work=lambda: blend_work(recs5, counts5, tiles_x)),
+        "K6": dict(
+            route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
+            replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
+            kernel=lambda: cs.splat_backward_all(slots_t, R9, trans, counts_t,
+                                                 accum_t, g_t, cam, tiles_x),
+            plain=lambda ids: cs.splat_backward_all_plain(
+                slots_t[ids], counts_t[ids], cp_t, tiles_x, accum_t[ids],
+                g_t[ids], ids),
+            T=T_t, sub=lambda o, ids: o[ids].transpose(1, 2), tol=1e-3,
+            bytes=lambda s: (s * 8 * 4 + T_t * 4 + 2 * T_t * 8 * 256 * 4
+                             + T_t * 8 * M_t * 4),
+            work=lambda: work_t),
     }
     counts_of = {"K1": counts_t, "K2": counts_t, "K3": kfc.counts,
-                 "K4": counts4}
+                 "K4": counts4, "K5": counts5, "K6": counts_t}
     for name, sp in specs.items():
         print(f"[{name}] vs plain on 128 tiles")
         full = sp["kernel"]()
@@ -399,7 +532,7 @@ def main() -> int:
         ids = pick_tiles(counts_of[name])
         ref = sp["plain"](ids)
         got = sp["sub"](full, ids)
-        ref_cmp = ref.transpose(1, 2) if name == "K1" else ref
+        ref_cmp = ref.transpose(1, 2) if name in ("K1", "K6") else ref
         err = check_close(name, got, ref_cmp, sp["tol"])
         ms = event_ms(sp["kernel"])
 
@@ -412,7 +545,8 @@ def main() -> int:
         print(f"  {name}: {ms:.4f} ms (kernel, median) | plain {plain_ms:.2f} "
               f"ms | bound {b_ms:.4f} ms ({b_by}; {work[0]} pairs walked, "
               f"{work[1]} blended, {work[2]} slots walked) | launches on the "
-              f"slice {launches[name]}")
+              f"engine paths {launches[name]} (slice {launches1[name]}, "
+              f"generic route {launches2[name]})")
         report.append({"name": name, "route": sp["route"],
                        "source": sp["source"], "replaces": sp["replaces"],
                        "launches": launches[name], "max_abs_err": err,

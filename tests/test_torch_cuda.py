@@ -4,7 +4,8 @@ This file imports no JAX, so its card tests also run on a machine with a
 GPU and no JAX:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 Tests marked `cuda` skip without a card (the kernels have no CPU mode).
 Kernel vs plain tolerances: the same f32 math in another order, rtol 1e-4 /
-atol 1e-5 forward and 1e-3 of the largest entry for gradients."""
+atol 1e-5 forward and 1e-3 of the largest entry for gradients (K2, K3, K5,
+K6 and the generic render's gradients)."""
 import numpy as np
 import pytest
 import torch
@@ -33,7 +34,10 @@ def _case(device="cpu", n=600, seed=0):
     return d(tc.slots8), d(tc.counts), d(R9), d(t), d(g)
 
 
-def _records(n_tiles=9, mpt=128, seed=0):
+def _records(n_tiles=9, mpt=128, seed=0, op_hi=0.99, conic=(0.05, 0.5)):
+    """Random depth-ordered records. With op_hi > 0.99 every 8th record is
+    fully opaque and centred on a pixel (clamped alpha); small conics make
+    wide splats, so whole tiles stop before their count."""
     rng = np.random.default_rng(seed)
     recs = np.zeros((n_tiles, 16, mpt), np.float32)
     counts = rng.integers(1, mpt + 1, n_tiles).astype(np.int32)
@@ -43,11 +47,14 @@ def _records(n_tiles=9, mpt=128, seed=0):
         k = counts[t]
         recs[t, 0, :k] = tx * 16 + rng.uniform(-2, 18, k)
         recs[t, 1, :k] = ty * 16 + rng.uniform(-2, 18, k)
-        recs[t, 2, :k] = rng.uniform(0.05, 0.5, k)
-        recs[t, 4, :k] = rng.uniform(0.05, 0.5, k)
-        recs[t, 3, :k] = rng.uniform(-0.05, 0.05, k)
-        recs[t, 5, :k] = rng.uniform(0.1, 0.99, k)
+        recs[t, 2, :k] = rng.uniform(*conic, k)
+        recs[t, 4, :k] = rng.uniform(*conic, k)
+        recs[t, 3, :k] = rng.uniform(-0.1, 0.1, k) * conic[0]
+        recs[t, 5, :k] = rng.uniform(0.1, op_hi, k)
         recs[t, 6:14, :k] = rng.uniform(0, 1, (8, k))
+        if op_hi > 0.99:
+            recs[t, 5, :k:8] = 1.0
+            recs[t, :2, :k:8] = np.round(recs[t, :2, :k:8])
     return torch.as_tensor(recs), torch.as_tensor(counts)
 
 
@@ -76,8 +83,10 @@ def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions and count
     nothing."""
     slots, counts, R9, t, g = _case()
-    before = (CS.splat_forward.launches, CS.splat_backward_pose.launches,
-              CS.splat_backward_vals_rows.launches, CB.blend_forward.launches)
+    wrappers = (CS.splat_forward, CS.splat_backward_pose,
+                CS.splat_backward_vals_rows, CS.splat_backward_all,
+                CB.blend_forward, CB.blend_backward)
+    before = [w.launches for w in wrappers]
     cam = torch_cam()
     out = CS.splat_forward(slots, R9, t, counts, cam, TILES_X)
     np.testing.assert_array_equal(
@@ -85,10 +94,11 @@ def test_wrappers_count_only_kernel_launches():
                                              CS.cp_vector(R9, t, cam), TILES_X)))
     CS.splat_backward_pose(slots, R9, t, counts, out, g, cam, TILES_X)
     CS.splat_backward_vals_rows(slots, R9, t, counts, out, g, cam, TILES_X)
-    CB.blend_forward(*_records(), TILES_X)
-    after = (CS.splat_forward.launches, CS.splat_backward_pose.launches,
-             CS.splat_backward_vals_rows.launches, CB.blend_forward.launches)
-    assert after == before
+    CS.splat_backward_all(slots, R9, t, counts, out, g, cam, TILES_X)
+    recs, rc = _records()
+    b_out = CB.blend_forward(recs, rc, TILES_X)
+    CB.blend_backward(recs, rc, b_out, torch.ones_like(b_out), TILES_X)
+    assert [w.launches for w in wrappers] == before
 
 
 @pytest.fixture
@@ -120,6 +130,39 @@ def test_splat_kernels_match_plain(card, seed):
                                       cam, TILES_X)
     for col in range(8):
         assert_close_scaled(got[..., col], ref[..., col], 1e-3, f"col {col}")
+    n6 = CS.splat_backward_all.launches
+    got = CS.splat_backward_all(slots, R9, t, counts, out, g, cam, TILES_X)
+    assert CS.splat_backward_all.launches == n6 + 1
+    ref = CS.splat_backward_all(c_slots, c_R9, c_t, c_counts, c_out, c_g, cam,
+                                TILES_X)
+    for row in range(8):
+        assert_close_scaled(got[:, row], ref[:, row], 1e-3, f"K6 row {row}")
+    # slots no pixel walked are zero, as in the plain version
+    walked = CS._walk(c_slots, c_counts, CS.cp_vector(c_R9, c_t, cam), TILES_X,
+                      None)["walked"].any(1)
+    assert bool((~walked).any())
+    np.testing.assert_array_equal(np_(got.transpose(1, 2))[np_(~walked)], 0.0)
+
+
+@pytest.mark.cuda
+def test_splat_blend_all_mode_matches_cpu_autograd(card):
+    """splat_blend(grad_mode="all") on the card (K1 + K6 and the wrapper's
+    dR / dt contraction) vs the same call on CPU tensors."""
+    cam = torch_cam()
+    grads = []
+    for dev in ("cpu", card):
+        slots, counts, R9, t, g = _case(dev, seed=5)
+        xs = [x.clone().requires_grad_(True) for x in (slots, R9, t)]
+        acc = CS.splat_blend(xs[0], xs[1], xs[2], counts, cam, TILES_X,
+                             grad_mode="all")
+        (acc * g).sum().backward()
+        grads.append([x.grad for x in xs])
+    for what, a, b in zip(("slots", "R", "t"), grads[1], grads[0]):
+        if what == "slots":
+            for row in range(8):
+                assert_close_scaled(a[:, row], b[:, row], 1e-3, f"slots {row}")
+        else:
+            assert_close_scaled(a, b, 1e-3, what)
 
 
 @pytest.mark.cuda
@@ -129,6 +172,70 @@ def test_blend_kernel_matches_plain(card):
     np.testing.assert_allclose(np_(got), np_(CB.blend_forward(recs, counts,
                                                               TILES_X, 8)),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "sparse", "clamped_and_stopped"])
+def test_blend_backward_kernel_matches_plain(card, kind):
+    """K5 on the card vs its plain version: full and sparse counts, clamped
+    alpha and tiles whose every pixel stops before the count; exact zeros
+    on the records no pixel walked."""
+    kw = dict(dense=dict(seed=5), sparse=dict(seed=6, mpt=256),
+              clamped_and_stopped=dict(seed=7, op_hi=1.0, conic=(0.005, 0.05))
+              )[kind]
+    recs, counts = _records(**kw)
+    if kind == "sparse":
+        counts = torch.clamp(counts, max=20)
+    out = CB.blend_forward(recs, counts, TILES_X, 8)
+    g = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    ref = CB.blend_backward(recs, counts, out, g, TILES_X)
+    n5 = CB.blend_backward.launches
+    got = CB.blend_backward(recs.to(card), counts.to(card), out.to(card),
+                            g.to(card), TILES_X)
+    assert CB.blend_backward.launches == n5 + 1
+    assert got.shape == ref.shape
+    for col in range(16):
+        assert_close_scaled(got[..., col], ref[..., col], 1e-3, f"col {col}")
+    walked = CB._blend_walk(recs, counts, TILES_X,
+                            torch.arange(recs.shape[0]))["walked"].any(1)
+    np.testing.assert_array_equal(np_(got)[np_(~walked)], 0.0)
+    assert bool((~walked).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aniso", [False, True])
+def test_render_slam_gradients_on_card_match_cpu(card, aniso):
+    """The generic route's differentiable render (K4, K5 and the inverse
+    map, autograd through the projection) on the card vs on the CPU."""
+    from vtgaussian_slam_tpu_torch.core import losses as TL
+    n = 600
+    p = scene_np(n, 9)
+    if aniso:
+        rng = np.random.default_rng(10)
+        p["log_scales"] = (np.repeat(p["log_scales"], 3, 1) + rng.uniform(
+            -0.3, 0.3, (n, 3))).astype(np.float32)
+        p["unnorm_rotations"] = rng.standard_normal((n, 4)).astype(np.float32)
+    G = torch.as_tensor(np.random.default_rng(11).standard_normal(
+        (6, 40, 48)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", card):
+        prm = torch_params(p)
+        prm = type(prm)(*[x.to(dev).requires_grad_(True)
+                          for x in prm.tensors()])
+        q = torch.as_tensor(POSE_Q).to(dev).requires_grad_(True)
+        t = torch.as_tensor(POSE_T).to(dev).requires_grad_(True)
+        r = TL.render_slam(prm, torch.ones(n, dtype=torch.bool, device=dev),
+                           q, t, torch_cam(),
+                           dict(span_cap=3, max_pairs_per_tile=256, chunk=128))
+        img = torch.cat([r.im, r.depth, r.silhouette[None], r.depth_sq])
+        (img * G.to(dev)).sum().backward()
+        grads.append([x.grad for x in prm.tensors()] + [q.grad, t.grad])
+    for i, (a, b) in enumerate(zip(grads[1], grads[0])):
+        if b is None:
+            assert a is None
+            continue
+        assert_close_scaled(a, b, 1e-3, f"grad {i}")
 
 
 @pytest.mark.cuda

@@ -91,11 +91,11 @@ def test_k3_vals_rows_backward_matches_pallas(case):
 
 
 def test_splat_pose_autograd_gives_k2(case):
-    """SplatPose's backward is K2 summed over tiles."""
+    """splat_blend's "pose" backward is K2 summed over tiles."""
     R9 = case["R9"].clone().requires_grad_(True)
     t = case["t"].clone().requires_grad_(True)
-    acc = CS.SplatPose.apply(case["slots"], R9, t, case["counts"], torch_cam(),
-                             TILES_X)
+    acc = CS.splat_blend(case["slots"], R9, t, case["counts"], torch_cam(),
+                         TILES_X, grad_mode="pose")
     (acc * case["g"]).sum().backward()
     got = torch.cat([R9.grad, t.grad])
     assert_close_scaled(got, case["pose_ref"], 1e-3, "autograd dR, dt")

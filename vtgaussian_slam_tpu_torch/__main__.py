@@ -1,8 +1,12 @@
 """Command line: run the first section of online SLAM through the port.
 
     python -m vtgaussian_slam_tpu_torch <config.py> [--frames N] [--device cuda|cpu]
+        [--set KEY=VALUE ...]
 
-Loads a scene config module (the JAX package's schema, `configs/`), runs
+Loads a scene config module (the JAX package's schema, `configs/`), applies
+the `--set` overrides (a dotted key into the config dict and a Python
+literal, e.g. `--set tpu.track_cache=False` for the generic tracking
+route), runs
 frames 0 .. min(N, baseframe_every) - 1 (frame 0 seeds and maps the section;
 every later frame tracks, densifies and maps), and prints per frame the
 phase wall times, the Gaussian count, and the PSNR / depth L1 of a render at
@@ -12,10 +16,23 @@ a later port slice.
 from __future__ import annotations
 
 import argparse
+import ast
 import importlib.util
 import os
 import sys
 import time
+
+
+def apply_override(config: dict, item: str) -> None:
+    """config["a"]["b"] = literal for the item "a.b=literal"."""
+    key, sep, value = item.partition("=")
+    if not sep:
+        raise SystemExit(f"--set takes KEY=VALUE, got {item!r}")
+    *path, last = key.split(".")
+    node = config
+    for k in path:
+        node = node.setdefault(k, {})
+    node[last] = ast.literal_eval(value)
 
 
 def main(argv=None) -> int:
@@ -24,6 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=None,
                     help="frames to run (capped at baseframe_every)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override a config entry, e.g. tpu.track_cache=False")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, os.getcwd())
@@ -31,6 +50,8 @@ def main(argv=None) -> int:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     config = module.config
+    for item in args.set:
+        apply_override(config, item)
 
     from .core.pipeline import VTGaussianSLAM
     from .utils.common import seed_everything

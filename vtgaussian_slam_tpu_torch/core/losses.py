@@ -1,9 +1,10 @@
 """Fused render + masked photometric/depth losses.
 
 Parity: `vtgaussian_slam_tpu/core/losses.py`. One 6-channel render gives
-(r, g, b, z, 1, z^2); the losses apply the reference's mask stack: valid
-depth, optional outlier rejection at 50x the lower-middle median depth
-error, the tracking silhouette (with the Replica adaptive threshold sweep
+(r, g, b, z, 1, z^2), differentiable in the pose and every Gaussian field
+(the generic route: K4 forward, K5 backward). The losses apply the
+reference's mask stack: valid depth, optional outlier rejection at 50x the
+lower-middle median depth error, the tracking silhouette (with the Replica adaptive threshold sweep
 on a frame's first iteration), and an auxiliary visibility / far-depth
 mask. Tracking losses are sums; mapping uses mean L1 depth and
 0.8 L1 + 0.2 (1 - SSIM) colour.
@@ -18,7 +19,7 @@ import torch
 from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
-from ..ops.rasterizer.tiled import blend_records, tile_records
+from ..ops.rasterizer.tiled import render_tiled, tile_records
 from ..ops.ssim import ssim
 
 SIL_THRES_CANDIDATES = (0.990, 0.993, 0.995, 0.997, 0.999)
@@ -38,6 +39,7 @@ class LossConfig(NamedTuple):
     adaptive_sil: bool
     im_weight: float
     depth_weight: float
+    backend_kwargs: tuple = ()  # render_tiled kwargs, as sorted items
 
 
 class RenderResult(NamedTuple):
@@ -55,31 +57,41 @@ class LossOutput(NamedTuple):
     sil_thres_out: torch.Tensor
 
 
+def _slam_inputs(params: GaussianParams, cam_quat: torch.Tensor,
+                 cam_trans: torch.Tensor):
+    """Camera-frame means, rotations (rotated into the camera frame when
+    anisotropic), scales, opacities and the (r, g, b, z, 1, z^2) colours."""
+    q = geo.normalize(cam_quat)
+    R = geo.quat_to_rotmat(q)
+    means_cam = params.means3d @ R.T + cam_trans
+    if params.isotropic:
+        quats = params.unnorm_rotations
+    else:
+        quats = geo.quat_mult(q[None, :], geo.normalize(params.unnorm_rotations))
+    z = means_cam[:, 2]
+    colors6 = torch.cat(
+        [params.rgb_colors, torch.stack([z, torch.ones_like(z), z * z], -1)], 1)
+    return (means_cam, quats, torch.exp(params.log_scales), params.opacities(),
+            colors6)
+
+
 def slam_records(params: GaussianParams, active: torch.Tensor,
                  cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
                  backend_kwargs: dict | None = None):
     """`render_slam`'s blend inputs: the (r, g, b, z, 1, z^2) records per
     tile at a camera pose, their counts and the radii (`tile_records`)."""
-    q = geo.normalize(cam_quat)
-    R = geo.quat_to_rotmat(q)
-    means_cam = params.means3d @ R.T + cam_trans
-    z = means_cam[:, 2]
-    colors6 = torch.cat(
-        [params.rgb_colors, torch.stack([z, torch.ones_like(z), z * z], -1)], 1)
-    return tile_records(
-        means_cam, params.unnorm_rotations, torch.exp(params.log_scales),
-        params.opacities(), colors6, cam, active, **(backend_kwargs or {}))
+    return tile_records(*_slam_inputs(params, cam_quat, cam_trans), cam,
+                        active, **(backend_kwargs or {}))
 
 
-@torch.no_grad()
 def render_slam(params: GaussianParams, active: torch.Tensor,
                 cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
                 backend_kwargs: dict | None = None) -> RenderResult:
-    """Fused RGB + depth/silhouette render at a camera pose (forward only:
-    the slice's differentiable renders are the cached splat paths)."""
-    recs, counts, radii = slam_records(params, active, cam_quat, cam_trans,
-                                       cam, backend_kwargs)
-    img6 = blend_records(recs, counts, cam, 6)
+    """Fused RGB + depth/silhouette render at a camera pose. Gradients
+    reach whichever of (params, cam_quat, cam_trans) require them;
+    densify and eval call it under `torch.no_grad`."""
+    img6, radii = render_tiled(*_slam_inputs(params, cam_quat, cam_trans),
+                               cam, active, **(backend_kwargs or {}))
     return RenderResult(im=img6[:3], depth=img6[3:4], silhouette=img6[4],
                         depth_sq=img6[5:6], radii=radii)
 
@@ -105,6 +117,16 @@ def _pick_sil_thres(r: RenderResult, frame: Frame) -> torch.Tensor:
     mse = tot / torch.clamp(msum, min=1)
     mse = torch.where(msum > 0, mse, torch.full_like(mse, float("inf")))
     return cands[torch.argmin(mse)]
+
+
+def compute_loss(params: GaussianParams, active: torch.Tensor,
+                 cam_quat: torch.Tensor, cam_trans: torch.Tensor, frame: Frame,
+                 cam: Camera, cfg: LossConfig, sil_thres, is_first_iter: bool,
+                 aux_mask: torch.Tensor | None = None) -> LossOutput:
+    """Weighted masked losses for one frame at one pose (generic renderer)."""
+    r = render_slam(params, active, cam_quat, cam_trans, cam,
+                    dict(cfg.backend_kwargs))
+    return loss_from_render(r, frame, cfg, sil_thres, is_first_iter, aux_mask)
 
 
 def loss_from_render(r: RenderResult, frame: Frame, cfg: LossConfig,

@@ -1,11 +1,14 @@
-"""Mapping: one frame's Gaussian optimization over frozen binnings.
+"""Mapping: one frame's Gaussian optimization.
 
-Parity: `vtgaussian_slam_tpu/core/mapping.py` (`map_binned_loop`,
-`map_frame_binned`, without the global-consistency term, which needs a
-second section). Every iteration draws a cached keyframe uniformly,
-renders the (N, 8) field table through that keyframe's frozen binning
-(map_cache.splat_binned: K1 + K3), takes the mapping loss and steps Adam
-(eps 1e-15) on the field table with zero lr on the mean columns.
+Parity: `vtgaussian_slam_tpu/core/mapping.py` (`map_frame`,
+`map_binned_loop`, `map_frame_binned`, without the global-consistency
+term, which needs a second section). Every iteration draws a keyframe
+uniformly, renders, takes the mapping loss and steps Adam (eps 1e-15).
+The binned route renders the (N, 8) field table through the keyframe's
+frozen binning (map_cache.splat_binned: K1 + K3) with zero lr on the mean
+columns; the generic route (`map_frame`) renders from scratch
+(render_slam: K4, backward K5) and steps every leaf whose lr is nonzero,
+per leaf.
 
 Draws: production draws come from a `torch.Generator` on the host (no
 device read per iteration); tests inject the JAX engine's draws instead,
@@ -17,10 +20,10 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..models.gaussians import GaussianParams
+from ..models.gaussians import PARAM_KEYS, GaussianParams
 from ..models.optimizer import MAP_EPS, adam_init, adam_step
 from ..ops.camera import Camera
-from .losses import Frame, LossConfig, loss_from_render
+from .losses import Frame, LossConfig, compute_loss, loss_from_render
 
 
 class MappingConfig(NamedTuple):
@@ -31,11 +34,14 @@ class MappingConfig(NamedTuple):
 
 
 class KeyframeBuffer(NamedTuple):
-    """Candidate keyframes for one mapping phase (the section's ring; the
-    keyframe poses live in the per-keyframe bin caches)."""
+    """Candidate keyframes for one mapping phase. The binned route keeps
+    the keyframe poses in its per-keyframe bin caches; the generic route
+    reads them here."""
     colors: torch.Tensor   # (B, 3, H, W)
     depths: torch.Tensor   # (B, 1, H, W)
-    count: int             # number of cached keyframes to draw from
+    count: int             # number of keyframes to draw from
+    quats: torch.Tensor | None = None   # (B, 4) w2c rotations (generic)
+    trans: torch.Tensor | None = None   # (B, 3)
 
 
 def lrs8_of(lrs: dict, like: torch.Tensor) -> torch.Tensor:
@@ -44,6 +50,46 @@ def lrs8_of(lrs: dict, like: torch.Tensor) -> torch.Tensor:
         [0.0, 0.0, 0.0, lrs.get("logit_opacities", 0.0),
          lrs.get("log_scales", 0.0)] + [lrs.get("rgb_colors", 0.0)] * 3,
         dtype=like.dtype, device=like.device)[None, :]
+
+
+def _draw(i: int, count: int, draws, generator) -> int:
+    if draws is not None:
+        return int(draws[i])
+    return int(torch.randint(0, count, (), generator=generator))
+
+
+def map_frame(params: GaussianParams, active: torch.Tensor,
+              kf: KeyframeBuffer, cam: Camera, cfg: MappingConfig,
+              draws: Sequence[int] | None = None,
+              generator: torch.Generator | None = None):
+    """The generic mapping loop: per iteration, render the section from
+    scratch at a drawn keyframe's pose (render_slam), take the mapping loss
+    and step Adam per leaf on the leaves with nonzero lr; zero-lr leaves
+    stay frozen and take no gradient. `draws` (keyframe indices, one per
+    iteration) replace the generator's uniform draws over `kf.count`.
+    Returns (params, (num_iters, 3) history [loss, im, depth])."""
+    if cfg.use_global:
+        raise NotImplementedError(
+            "the global-consistency term arrives with section boundaries")
+    lr_of = dict(cfg.lrs)
+    names = [a for f, a in PARAM_KEYS if lr_of.get(f, 0.0) != 0.0]
+    lrs = [lr_of[f] for f, a in PARAM_KEYS if a in names]
+    leaves = [getattr(params, a).detach() for a in names]
+    frozen = {a: getattr(params, a).detach() for _, a in PARAM_KEYS
+              if a not in names}
+    opt = adam_init(leaves)
+    hist = torch.zeros((cfg.num_iters, 3), device=params.means3d.device)
+    for i in range(cfg.num_iters):
+        k = _draw(i, kf.count, draws, generator)
+        frame = Frame(color=kf.colors[k], depth=kf.depths[k])
+        vs = [x.requires_grad_(True) for x in (v.detach() for v in leaves)]
+        p = GaussianParams(**frozen, **dict(zip(names, vs)))
+        out = compute_loss(p, active, kf.quats[k], kf.trans[k], frame, cam,
+                           cfg.loss_cfg, 0.5, False)
+        grads = list(torch.autograd.grad(out.loss, vs)) if vs else []
+        leaves, opt = adam_step(leaves, grads, opt, lrs, eps=MAP_EPS)
+        hist[i] = torch.stack([out.loss, out.im_loss, out.depth_loss]).detach()
+    return GaussianParams(**frozen, **dict(zip(names, leaves))), hist
 
 
 def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
@@ -65,10 +111,7 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
     hist = torch.zeros((cfg.num_iters, 3), device=f8.device)
     half = torch.tensor(0.5, device=f8.device)
     for i in range(cfg.num_iters):
-        if draws is not None:
-            slot = int(draws[i])
-        else:
-            slot = int(torch.randint(0, kf.count, (), generator=generator))
+        slot = _draw(i, kf.count, draws, generator)
         ring = slot_ids[slot]
         frame = Frame(color=kf.colors[ring], depth=kf.depths[ring])
         v8 = f8.detach().requires_grad_(True)

@@ -3,14 +3,26 @@
 Parity: `vtgaussian_slam_tpu/core/pipeline.py` (`VTGaussianSLAM`), the
 subset that runs frames 0 .. baseframe_every-1: frame 0 seeds the section
 from the back-projected frame plus the Canny-masked densification stream
-and maps it; every later frame tracks (constant-velocity init, frozen
-binning, K1 + K2), densifies on a fresh render (K4) and maps over the
-section's keyframe ring (K1 + K3). Everything that needs a second section
-(boundary selection, point-to-plane tracking, section spawning, the
-frozen-section global term, paging) arrives in a later slice, and
-`process_frame` refuses those frames. The pair budget follows the JAX
-engine's open-loop `auto_pair_budget` (boost 1); the measured-harm probe
-that closes the loop is not ported yet.
+and maps it; every later frame tracks (constant-velocity init), densifies
+on a fresh render (K4) and maps. Tracking and mapping each take one of two
+routes, chosen as the JAX engine chooses them:
+
+  - tracking: the frozen-binning cache (K1 + K2) for isotropic configs
+    with `tpu.track_cache` on (the default); otherwise the generic route,
+    which renders from scratch every iteration (K4, backward K5);
+  - mapping: the per-keyframe frozen binnings (K1 + K3) for isotropic
+    configs whose means3D / unnorm_rotations mapping lrs are zero, with
+    `tpu.map_binned` on (its default is on for CUDA and off for the CPU,
+    as the JAX default follows the backend); otherwise the generic route.
+
+As in the JAX engine, `gaussian_distribution="anisotropic"` changes the
+route but not the Gaussians: sections are seeded with (N, 1) log-scales
+either way. Everything that needs a second section (boundary selection,
+point-to-plane tracking, section spawning, the frozen-section global
+term, paging) arrives in a later slice, and `process_frame` refuses those
+frames. The pair budget follows the JAX engine's open-loop
+`auto_pair_budget` (boost 1); the measured-harm probe that closes the loop
+is not ported yet.
 
 The engine runs on CUDA unless the caller passes device="cpu".
 """
@@ -35,9 +47,10 @@ from .densify import (densify_from_pixels, densify_nonpresence,
                       first_frame_pointcloud)
 from .losses import Frame, LossConfig, render_slam
 from .map_cache import MapCacheStore
-from .mapping import KeyframeBuffer, MappingConfig, map_frame_binned
+from .mapping import KeyframeBuffer, MappingConfig, map_frame, map_frame_binned
 from .track_cache import build_track_cache
-from .tracking import TrackingConfig, init_track_state, track_frame_cached
+from .tracking import (TrackingConfig, init_track_state, track_frame,
+                       track_frame_cached)
 
 BOUNDARY_MSG = "section boundaries arrive in a later port slice"
 
@@ -95,9 +108,9 @@ def build_dataset(config: dict, densify_res: bool = False):
 
 
 class VTGaussianSLAM:
-    """map_draws(t, num_iters, count) -> cache-slot indices, when given,
-    replaces the mapping generator's keyframe draws (tests inject the JAX
-    engine's draws through it)."""
+    """map_draws(t, num_iters, count) -> keyframe indices (cache slots on
+    the binned route), when given, replaces the mapping generator's draws
+    (tests inject the JAX engine's draws through it)."""
 
     def __init__(self, config: dict, device="cuda",
                  map_draws: Callable[[int, int, int], list] | None = None):
@@ -112,15 +125,13 @@ class VTGaussianSLAM:
             raise NotImplementedError(
                 f"mapping pose lrs up to {pose_lr:g}: the engine holds "
                 "keyframe poses fixed during mapping")
-        if cfg["gaussian_distribution"] != "isotropic":
-            raise NotImplementedError("anisotropic Gaussians: later slice")
         tpu = cfg["tpu"]
-        if not (tpu.get("track_cache", True) and tpu.get("map_binned", True)):
-            raise NotImplementedError(
-                "the generic tracking/mapping renderers: later slice")
-        if float(mplrs.get("means3D", 0.0)) != 0.0 or \
-                float(mplrs.get("unnorm_rotations", 0.0)) != 0.0:
-            raise NotImplementedError("mapping lrs on means/rotations")
+        isotropic = cfg["gaussian_distribution"] == "isotropic"
+        self.track_cached = isotropic and tpu.get("track_cache", True)
+        self.map_binned = (
+            isotropic and float(mplrs.get("means3D", 0.0)) == 0.0
+            and float(mplrs.get("unnorm_rotations", 0.0)) == 0.0
+            and tpu.get("map_binned", self.device.type != "cpu"))
         if float(tpu.get("two_class_frac", 0.0)) > 0.0:
             raise NotImplementedError("two-class binning: later slice")
         if cfg["tracking"].get("multiavg", False):
@@ -200,13 +211,15 @@ class VTGaussianSLAM:
 
     def _loss_cfg(self, tracking: bool) -> LossConfig:
         tr = self.config["tracking" if tracking else "mapping"]
+        bk = self.backend_kwargs if tracking else self.map_backend_kwargs
         return LossConfig(
             tracking=tracking, use_sil_for_loss=tr["use_sil_for_loss"],
             ignore_outlier_depth_loss=tr["ignore_outlier_depth_loss"],
             adaptive_sil=(tracking and self.dataset_name == "replica"
                           and tr["use_sil_for_loss"]),
             im_weight=float(tr["loss_weights"]["im"]),
-            depth_weight=float(tr["loss_weights"]["depth"]))
+            depth_weight=float(tr["loss_weights"]["depth"]),
+            backend_kwargs=tuple(sorted(bk.items())))
 
     def _init_first_frame(self, color0, depth0):
         frame = self._stage(color0, depth0)
@@ -316,7 +329,12 @@ class VTGaussianSLAM:
 
     def _run_track(self, sec, state, frame, aux_mask, tcfg):
         """The frozen-binning tracking loop, rebinned every
-        tpu.track_rebin_every iterations when that is set."""
+        tpu.track_rebin_every iterations when that is set; the generic
+        loop when the cache route is off."""
+        if not self.track_cached:
+            state, _, _ = track_frame(sec.params, sec.active_mask(), state,
+                                      frame, aux_mask, self.cam, tcfg)
+            return state
         bk = self.backend_kwargs
         mpt = bk["max_pairs_per_tile"]
         rebin = int(self.config["tpu"].get("track_rebin_every", 0) or 0)
@@ -387,7 +405,8 @@ class VTGaussianSLAM:
 
     # ------------------------------------------------------------------
     def _map(self, t: int, frame: Frame):
-        """Mapping phase for one frame over the section's keyframe caches."""
+        """Mapping phase for one frame: over the section's keyframe caches
+        on the binned route, else the generic route."""
         cfg = self.config
         mp = cfg["mapping"]
         self._update_pair_budget()
@@ -399,20 +418,45 @@ class VTGaussianSLAM:
             lrs=tuple(sorted((k, float(v)) for k, v in mp["lrs"].items()
                              if k not in ("cam_unnorm_rots", "cam_trans"))),
             loss_cfg=self._loss_cfg(False), use_global=False)
-        mbk = self.map_backend_kwargs
-        W = min(self.bfe, int(cfg["tpu"].get("map_cache_slots", 64)))
-        slots, slot_ids, count = self.map_store.update(
-            sec.params, sec.active_mask(), sec.n_active, idx_in,
-            self.traj.quats[t].clone(), self.traj.trans[t].clone(), self.cam,
-            mbk["span_cap"], mbk["max_pairs_per_tile"], W)
-        kf = KeyframeBuffer(colors=self.ring_colors, depths=self.ring_depths,
-                            count=count)
+        if not self.map_binned:
+            new_params = self._map_generic(t, frame, sec, mcfg)
+        else:
+            mbk = self.map_backend_kwargs
+            W = min(self.bfe, int(cfg["tpu"].get("map_cache_slots", 64)))
+            slots, slot_ids, count = self.map_store.update(
+                sec.params, sec.active_mask(), sec.n_active, idx_in,
+                self.traj.quats[t].clone(), self.traj.trans[t].clone(),
+                self.cam, mbk["span_cap"], mbk["max_pairs_per_tile"], W)
+            kf = KeyframeBuffer(colors=self.ring_colors,
+                                depths=self.ring_depths, count=count)
+            draws = (self.map_draws(t, mcfg.num_iters, count)
+                     if self.map_draws is not None else None)
+            new_params, _ = map_frame_binned(sec.params, kf, slots, slot_ids,
+                                             self.cam, mcfg, draws=draws,
+                                             generator=self.map_generator)
+        self.sections[bf_idx] = sec.replace(params=new_params)
+
+    def _map_generic(self, t: int, frame: Frame, sec, mcfg: MappingConfig):
+        """The generic mapping loop over the frame alone at a section's
+        first frame, else over the section's ring up to the frame."""
+        idx_in = t % self.bfe
+        if idx_in == 0:
+            ids = torch.tensor([t], device=self.device)
+            colors, depths, count = frame.color[None], frame.depth[None], 1
+        else:
+            ids = torch.clamp(torch.arange(self.bfe, device=self.device)
+                              + (t - idx_in), max=self.num_frames - 1)
+            colors, depths = self.ring_colors, self.ring_depths
+            count = idx_in + 1
+        kf = KeyframeBuffer(colors=colors, depths=depths, count=count,
+                            quats=self.traj.quats[ids].clone(),
+                            trans=self.traj.trans[ids].clone())
         draws = (self.map_draws(t, mcfg.num_iters, count)
                  if self.map_draws is not None else None)
-        new_params, _ = map_frame_binned(sec.params, kf, slots, slot_ids,
-                                         self.cam, mcfg, draws=draws,
-                                         generator=self.map_generator)
-        self.sections[bf_idx] = sec.replace(params=new_params)
+        new_params, _ = map_frame(sec.params, sec.active_mask(), kf, self.cam,
+                                  mcfg, draws=draws,
+                                  generator=self.map_generator)
+        return new_params
 
     # ------------------------------------------------------------------
     def process_frame_zero(self):

@@ -18,7 +18,7 @@ from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
 from ..ops.rasterizer.binning import bin_gaussians, gather_channels
-from ..ops.rasterizer.cuda_splat import SplatPose, assemble_image
+from ..ops.rasterizer.cuda_splat import assemble_image, splat_blend
 from ..ops.rasterizer.projection import project_gaussians
 from .losses import RenderResult
 
@@ -64,8 +64,8 @@ def render_cached(cache: TrackCache, cam_quat: torch.Tensor,
     gradient comes from K2 through torch autograd."""
     tiles_x = -(-cam.width // tile)
     R = geo.quat_to_rotmat(geo.normalize(cam_quat))
-    accum = SplatPose.apply(cache.slots8, R.reshape(9), cam_trans,
-                            cache.counts, cam, tiles_x)
+    accum = splat_blend(cache.slots8, R.reshape(9), cam_trans, cache.counts,
+                        cam, tiles_x, grad_mode="pose")
     img = assemble_image(accum, cam, tile)
     return RenderResult(im=img[:3], depth=img[3:4], silhouette=img[4],
                         depth_sq=img[5:6], radii=cache.radii)

@@ -1,7 +1,8 @@
 """Camera tracking: one frame's pose optimization.
 
 Parity: `vtgaussian_slam_tpu/core/tracking.py` (`track_loop`,
-`track_frame_cached`, metric "loss"). A fresh Adam per frame on
+`track_frame` over the generic renderer, `track_frame_cached`, metric
+"loss"). A fresh Adam per frame on
 (quat, trans); each iteration renders, takes the masked loss and its pose
 gradient, steps, and keeps the post-step pose of the lowest PRE-step loss
 as the best candidate. The adaptive silhouette threshold is picked on the
@@ -15,8 +16,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.gaussians import GaussianParams
 from ..ops.camera import Camera
-from .losses import Frame, LossConfig, loss_from_render
+from .losses import Frame, LossConfig, loss_from_render, render_slam
 
 
 class TrackingConfig(NamedTuple):
@@ -102,6 +104,22 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
             im_h[i] = s.im_loss
             d_h[i] = s.depth_loss
     return s, im_h, d_h
+
+
+def track_frame(params: GaussianParams, active: torch.Tensor,
+                state: TrackState, frame: Frame,
+                aux_mask: torch.Tensor | None, cam: Camera,
+                cfg: TrackingConfig):
+    """`track_loop` over the generic renderer (`render_slam`): every
+    iteration projects, bins and blends from scratch (K4), and its pose
+    gradient comes back through K5 and the projection by autograd."""
+    bk = dict(cfg.loss_cfg.backend_kwargs)
+    frozen = GaussianParams(*[x.detach() for x in params.tensors()])
+
+    def render_fn(quat, trans):
+        return render_slam(frozen, active, quat, trans, cam, bk)
+
+    return track_loop(render_fn, state, frame, aux_mask, cfg)
 
 
 def track_frame_cached(cache, state: TrackState, frame: Frame,

@@ -5,6 +5,7 @@
 //   K1 vtgs_splat_fwd           <- _fwd_call / _fwd_kernel
 //   K2 vtgs_splat_bwd_pose      <- _bwd_call / _bwd_kernel, mode "pose"
 //   K3 vtgs_splat_bwd_vals_rows <- _bwd_call / _bwd_kernel, mode "vals_rows"
+//   K6 vtgs_splat_bwd_all       <- _bwd_call / _bwd_kernel, mode "all"
 //
 // Layouts (identical to the JAX package):
 //   slots  (n_tiles, 8, mpt) f32 rows [wx wy wz logit_op log_scale r g b]
@@ -14,6 +15,9 @@
 //   g      (n_tiles, 8, 256) f32 cotangent of out
 //   K2 -> (n_tiles, 12) f32 per-tile partial [dR(9) dt(3)], summed by torch
 //   K3 -> (n_tiles, mpt, 8) f32 rows [0 0 0 d logit_op d log_scale d rgb]
+//   K6 -> (n_tiles, 8, mpt) f32 rows [d mean_cam(3) d logit_op d log_scale
+//         d rgb(3)], the JAX layout; the wrapper contracts dR, dt and
+//         rotates d mean_cam to world
 //
 // Design: one CTA per 16x16 tile, one thread per pixel (256 threads). Slot
 // records are staged through shared memory CH at a time; the per-slot
@@ -23,8 +27,9 @@
 // the first slot whose transmittance after blending would fall below 1e-4
 // (that slot is not blended). The CTA leaves when all 256 pixels stopped.
 //
-// The backwards replay the same walk front to back and use the suffix
-// identity dL/dalpha_k = T_k (g.c_k) - (G - H_k) / (1 - alpha_k), with
+// The backwards (K2, K3, K6: one template, MODE 0 / 1 / 2) replay the same
+// walk front to back and use the suffix identity
+// dL/dalpha_k = T_k (g.c_k) - (G - H_k) / (1 - alpha_k), with
 // G = sum_ch g*out and H_k the inclusive prefix of w_j (g.c_j). Per-slot
 // sums over the tile's pixels are a warp shuffle reduction (skipped when no
 // lane of the warp touched the slot) into shared memory, summed over the 8
@@ -204,7 +209,9 @@ splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   o[7 * TPX + p] = 0.0f;
 }
 
-// MODE 0: "pose" (K2), MODE 1: "vals_rows" (K3)
+// MODE 0: "pose" (K2), MODE 1: "vals_rows" (K3), MODE 2: "all" (K6): K2's
+// per-slot chain to d mean_cam together with K3's per-slot values, written
+// per slot instead of reduced per tile
 template <int MODE>
 __global__ void __launch_bounds__(TPX)
 splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts,
@@ -216,7 +223,10 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   //               sum gp dy^2, sum w (g3 + 2 z g5)]
   //   vals_rows: [sum gp dx^2, sum gp dx dy, sum gp dy^2,
   //               sum galpha expp, sum w g0, sum w g1, sum w g2]
-  constexpr int NV = MODE == 0 ? 6 : 7;
+  //   all:       the six of pose, then sum galpha expp, sum w g0..g2
+  constexpr int NV = MODE == 0 ? 6 : (MODE == 1 ? 7 : 10);
+  constexpr int I_GE = MODE == 1 ? 3 : 6;    // sum galpha expp
+  constexpr int I_RGB = I_GE + 1;            // sum w g0..g2
   __shared__ Stage s;
   __shared__ float part[NWARP][NV][CH];
   __shared__ float red_s[NWARP][12];
@@ -246,7 +256,7 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   float red[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) red[i] = 0.0f;
-  int written = 0;   // vals_rows: slots [0, written) hold their gradient
+  int written = 0;   // vals_rows, all: slots [0, written) hold their gradient
 
   for (int c0 = 0; c0 < count; c0 += CH) {
     const int n = min(CH, count - c0);
@@ -278,21 +288,23 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
                                  ? 0.0f
                                  : T * Gc - (GG - H) / fmaxf(1.0f - alpha, 1e-6f);
             const float gp = ga * alpha;
-            if (MODE == 0) {
+            if (MODE != 1) {
               v[0] = gp * dx;
               v[1] = gp * dy;
               v[2] = gp * dx * dx;
               v[3] = gp * dx * dy;
               v[4] = gp * dy * dy;
-              v[NV - 1] = w * (gc[3] + 2.0f * z * gc[5]);
+              v[5] = w * (gc[3] + 2.0f * z * gc[5]);
             } else {
               v[0] = gp * dx * dx;
               v[1] = gp * dx * dy;
               v[2] = gp * dy * dy;
-              v[3] = ga * expp;
-              v[4] = w * gc[0];
-              v[5] = w * gc[1];
-              v[NV - 1] = w * gc[2];
+            }
+            if (MODE != 0) {
+              v[I_GE] = ga * expp;
+              v[I_RGB] = w * gc[0];
+              v[I_RGB + 1] = w * gc[1];
+              v[I_RGB + 2] = w * gc[2];
             }
             act = true;
             T = Ta;
@@ -323,7 +335,7 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
       }
       const Proj q = project(ts, mpt, c0 + p, cam);
       const float okf = q.ok ? 1.0f : 0.0f;
-      const int o = MODE == 0 ? 2 : 0;   // offset of the quadratic sums
+      const int o = MODE == 1 ? 0 : 2;   // offset of the quadratic sums
       const float g_ca = -0.5f * sum[o + 0];
       const float g_cb = -sum[o + 1];
       const float g_cc = -0.5f * sum[o + 2];
@@ -335,19 +347,22 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
       const float g_v00 = -(ca0 * q.ca + ca1 * q.cb);
       const float g_v01 = -2.0f * (ca0 * q.cb + ca1 * q.cc);
       const float g_v11 = -(cb0 * q.cb + cb1 * q.cc);
+      float g_lo = 0.0f, g_ls = 0.0f;
+      if (MODE != 0) {
+        g_lo = sum[I_GE] * q.sig * (1.0f - q.sig) * okf;
+        g_ls = 2.0f * q.s2 * (g_v00 * q.ax + g_v01 * q.bxy + g_v11 * q.cy_) *
+               okf;
+      }
       if (MODE == 1) {
-        const float g_lo = sum[3] * q.sig * (1.0f - q.sig) * okf;
-        const float g_ls =
-            2.0f * q.s2 * (g_v00 * q.ax + g_v01 * q.bxy + g_v11 * q.cy_) * okf;
         float* row = grad + ((size_t)tile * mpt + c0 + p) * 8;
         row[0] = 0.0f;
         row[1] = 0.0f;
         row[2] = 0.0f;
         row[3] = g_lo;
         row[4] = g_ls;
-        row[5] = sum[4];
-        row[6] = sum[5];
-        row[7] = sum[6];
+        row[5] = sum[I_RGB];
+        row[6] = sum[I_RGB + 1];
+        row[7] = sum[I_RGB + 2];
       } else {
         const float s_dx = sum[0], s_dy = sum[1];
         const float g_m2x = (q.ca * s_dx + q.cb * s_dy) * okf;
@@ -373,13 +388,25 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
         g_iz = g_iz + g_m2x * cam.fx * q.x + g_m2y * cam.fy * q.y;
         const float g_zs = g_zs_tx + g_zs_ty - iz2 * g_iz;
         const float g_z = (g_zs + g_z_cols) * okf;
-        const float gcam[3] = {g_x, g_y, g_z};
-        const float mw[3] = {q.wx, q.wy, q.wz};
+        if (MODE == 0) {
+          const float gcam[3] = {g_x, g_y, g_z};
+          const float mw[3] = {q.wx, q.wy, q.wz};
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
+          for (int i = 0; i < 3; ++i) {
 #pragma unroll
-          for (int j = 0; j < 3; ++j) red[i * 3 + j] += gcam[i] * mw[j];
-          red[9 + i] += gcam[i];
+            for (int j = 0; j < 3; ++j) red[i * 3 + j] += gcam[i] * mw[j];
+            red[9 + i] += gcam[i];
+          }
+        } else {
+          float* col = grad + (size_t)tile * 8 * mpt + c0 + p;
+          col[0] = g_x;
+          col[mpt] = g_y;
+          col[2 * mpt] = g_z;
+          col[3 * mpt] = g_lo;
+          col[4 * mpt] = g_ls;
+          col[5 * mpt] = sum[I_RGB];
+          col[6 * mpt] = sum[I_RGB + 1];
+          col[7 * mpt] = sum[I_RGB + 2];
         }
       }
     }
@@ -388,10 +415,15 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
     if (__syncthreads_or(!done) == 0) break;
   }
 
+  // slots the walk never reached (early exit, or past count) get zeros
   if (MODE == 1) {
-    // slots the walk never reached (early exit, or past count) get zeros
     float* base = grad + (size_t)tile * mpt * 8;
     for (int i = written * 8 + p; i < mpt * 8; i += TPX) base[i] = 0.0f;
+  } else if (MODE == 2) {
+    const int rest = mpt - written;
+    float* base = grad + (size_t)tile * 8 * mpt + written;
+    for (int i = p; i < 8 * rest; i += TPX)
+      base[(i / rest) * mpt + i % rest] = 0.0f;
   } else {
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
@@ -437,6 +469,14 @@ int vtgs_splat_bwd_vals_rows(const float* slots, const int* counts,
                              void* stream) {
   splat_bwd_kernel<1><<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
       slots, counts, cp, out, g, mpt, tiles_x, rows);
+  return (int)cudaGetLastError();
+}
+
+int vtgs_splat_bwd_all(const float* slots, const int* counts, const float* cp,
+                       const float* out, const float* g, int n_tiles, int mpt,
+                       int tiles_x, float* grad, void* stream) {
+  splat_bwd_kernel<2><<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
+      slots, counts, cp, out, g, mpt, tiles_x, grad);
   return (int)cudaGetLastError();
 }
 

@@ -40,9 +40,11 @@ SIGNATURES = {
         "vtgs_splat_bwd_pose": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
         "vtgs_splat_bwd_vals_rows": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
                                      _VP),
+        "vtgs_splat_bwd_all": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
     },
     "blend": {
         "vtgs_blend_fwd": (_VP, _VP, _I, _I, _I, _I, _VP, _VP),
+        "vtgs_blend_bwd": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP),
     },
 }
 

@@ -1,10 +1,19 @@
-"""Fused splat kernels K1-K3: world-space slots + pose -> tile image.
+"""Fused splat kernels K1-K3 and K6: world-space slots + pose -> tile image.
 
 Replaces `vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py`:
 
   K1 `splat_forward`            <- `_fwd_call` / `_fwd_kernel`
   K2 `splat_backward_pose`      <- `_bwd_call` / `_bwd_kernel`, mode "pose"
   K3 `splat_backward_vals_rows` <- `_bwd_call` / `_bwd_kernel`, mode "vals_rows"
+  K6 `splat_backward_all`       <- `_bwd_call` / `_bwd_kernel`, mode "all"
+
+`splat_blend(..., grad_mode)` is `splat_blend` of the JAX package as a
+`torch.autograd.Function`: K1 forward and, by grad_mode, K2 ("pose": dR,
+dt only), K3 ("vals" / "vals_rows": the value rows, transposed to the
+slot layout; mode "vals" of the JAX kernel is the same sums as K3) or K6
+("all": every slot row, with dR and dt contracted and d mean rotated to
+world here, as the JAX wrapper `_splat_bwd` does). Tracking's cached
+renderer uses "pose"; "all", the JAX default, has no engine caller.
 
 The CUDA sources are `csrc/splat.cu` (its header says what bounds the
 kernels on the H100 and what the simple design does about it). Each
@@ -175,9 +184,10 @@ def _conic_chain(q, sums):
 
 
 def splat_backward_vals_rows_plain(slots8, counts, cp, tiles_x, out, g,
-                                   tile_ids=None):
+                                   tile_ids=None, sums=None):
     """Plain K3: -> (T, mpt, 8) rows [0 0 0 d lo, d ls, d r, d g, d b]."""
-    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    q, s = sums or _backward_sums(slots8, counts, cp, tiles_x, out, g,
+                                  tile_ids)
     okf = q["ok"].float()
     g_v00, g_v01, g_v11 = _conic_chain(q, s)
     g_lo = s["s_ge"] * q["sig"] * (1.0 - q["sig"]) * okf
@@ -189,10 +199,9 @@ def splat_backward_vals_rows_plain(slots8, counts, cp, tiles_x, out, g,
     return rows.contiguous()
 
 
-def splat_backward_pose_plain(slots8, counts, cp, tiles_x, out, g,
-                              tile_ids=None):
-    """Plain K2: -> (T, 12) per-tile partial [dR(9), dt(3)]."""
-    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+def _mean_cam_grad(q, s):
+    """The per-slot chain power -> conic -> 2D cov -> Jacobian and mean2d
+    -> d mean_cam, (T, 3, M)."""
     okf = q["ok"].float()
     g_v00, g_v01, g_v11 = _conic_chain(q, s)
     ca, cb, cc = q["ca"], q["cb"], q["cc"]
@@ -219,10 +228,27 @@ def splat_backward_pose_plain(slots8, counts, cp, tiles_x, out, g,
     g_zs = (g_tx * (q["cux"] - in_x * q["ux"]) + g_ty * (q["cuy"] - in_y * q["uy"])
             - iz2 * (g_iz + g_m2x * fx * q["x"] + g_m2y * fy * q["y"]))
     g_z = (g_zs + s["g_zc"]) * okf
-    g_cam = torch.stack([g_x, g_y, g_z], 1)                      # (T, 3, M)
+    return torch.stack([g_x, g_y, g_z], 1)
+
+
+def splat_backward_pose_plain(slots8, counts, cp, tiles_x, out, g,
+                              tile_ids=None):
+    """Plain K2: -> (T, 12) per-tile partial [dR(9), dt(3)]."""
+    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    g_cam = _mean_cam_grad(q, s)                                  # (T, 3, M)
     mw = torch.stack([q["wx"], q["wy"], q["wz"]], 1)
     dR = torch.einsum("tim,tjm->tij", g_cam, mw).reshape(-1, 9)
     return torch.cat([dR, g_cam.sum(-1)], 1)
+
+
+def splat_backward_all_plain(slots8, counts, cp, tiles_x, out, g,
+                             tile_ids=None):
+    """Plain K6: -> (T, 8, mpt) rows [d mean_cam(3), d lo, d ls, d rgb]."""
+    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    rows = splat_backward_vals_rows_plain(slots8, counts, cp, tiles_x, out, g,
+                                          tile_ids, (q, s))
+    return torch.cat([_mean_cam_grad(q, s), rows.transpose(1, 2)[:, 3:]],
+                     1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -313,25 +339,62 @@ def splat_backward_vals_rows(slots8, R9, trans, counts, out, g, cam: Camera,
 splat_backward_vals_rows.launches = 0
 
 
-class SplatPose(torch.autograd.Function):
-    """accum = K1(slots8, R9, trans); the backward is K2, giving (dR9, dt).
-    Slots carry no gradient (tracking freezes the map)."""
+def splat_backward_all(slots8, R9, trans, counts, out, g, cam: Camera,
+                       tiles_x: int) -> torch.Tensor:
+    """K6: replay + full per-slot chain -> (T, 8, mpt) camera-frame rows."""
+    return _splat_backward("vtgs_splat_bwd_all", splat_backward_all,
+                           splat_backward_all_plain, lambda T, M: (T, 8, M),
+                           slots8, R9, trans, counts, out, g, cam, tiles_x)
+
+
+splat_backward_all.launches = 0
+
+GRAD_MODES = ("pose", "vals", "vals_rows", "all")
+
+
+class SplatBlend(torch.autograd.Function):
+    """accum = K1(slots8, R9, trans); the backward by grad_mode (module
+    docstring) gives (d slots8, d R9, d trans)."""
 
     @staticmethod
-    def forward(ctx, slots8, R9, trans, counts, cam, tiles_x):
+    def forward(ctx, slots8, R9, trans, counts, cam, tiles_x, grad_mode):
         out = splat_forward(slots8, R9.detach(), trans.detach(), counts, cam,
                             tiles_x)
         ctx.save_for_backward(slots8, R9.detach(), trans.detach(), counts, out)
-        ctx.cam, ctx.tiles_x = cam, tiles_x
+        ctx.cam, ctx.tiles_x, ctx.grad_mode = cam, tiles_x, grad_mode
         return out
 
     @staticmethod
     def backward(ctx, g):
         slots8, R9, trans, counts, out = ctx.saved_tensors
-        part = splat_backward_pose(slots8, R9, trans, counts, out, g, ctx.cam,
-                                   ctx.tiles_x)
-        tot = part.sum(0)
-        return None, tot[:9], tot[9:12], None, None, None
+        args = (slots8, R9, trans, counts, out, g, ctx.cam, ctx.tiles_x)
+        g_slots = g_R = g_t = None
+        if ctx.grad_mode == "pose":
+            tot = splat_backward_pose(*args).sum(0)
+            g_R, g_t = tot[:9], tot[9:12]
+        elif ctx.grad_mode == "all":
+            rows = splat_backward_all(*args)
+            g_mc = rows[:, 0:3]                                  # (T, 3, M)
+            g_R = torch.einsum("tim,tjm->ij", g_mc, slots8[:, 0:3]).reshape(9)
+            g_t = g_mc.sum((0, 2))
+            g_w = torch.einsum("ij,tjm->tim", R9.reshape(3, 3).T, g_mc)
+            g_slots = torch.cat([g_w, rows[:, 3:]], 1)
+        else:
+            g_slots = splat_backward_vals_rows(*args).transpose(1, 2)
+            g_R, g_t = torch.zeros_like(R9), torch.zeros_like(trans)
+        return g_slots, g_R, g_t, None, None, None, None
+
+
+def splat_blend(slots8: torch.Tensor, R9: torch.Tensor, trans: torch.Tensor,
+                counts: torch.Tensor, cam: Camera, tiles_x: int,
+                grad_mode: str = "all") -> torch.Tensor:
+    """slots8 (T, 8, mpt) + pose -> accum (T, 8, 256), differentiable in
+    what `grad_mode` names: "pose" (R9, trans), "vals" / "vals_rows" (the
+    slots' value rows; mean rows zero) or "all" (slots, R9 and trans)."""
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"grad_mode must be one of {GRAD_MODES}, "
+                         f"got {grad_mode!r}")
+    return SplatBlend.apply(slots8, R9, trans, counts, cam, tiles_x, grad_mode)
 
 
 def assemble_image(accum: torch.Tensor, cam: Camera, tile: int = TILE
