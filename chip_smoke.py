@@ -28,11 +28,18 @@ Phases (any failure raises and the exit code is non-zero):
      random), with the tolerance stated; K6, which no engine path launches,
      also runs through `splat_blend(grad_mode="all")` under autograd, held
      against the plain rows and against K2's dR, dt;
-     then the kernel's median time (CUDA events) at the full shapes, the
+     for K2 where its disagreement comes from (kernel and plain f32 each
+     against the plain version in f64, and the TF32 mirror of the sums);
+     then the kernel's time at the full shapes (CUDA events around one
+     wrapper call, the median of 10; 20 calls back to back beside it), the
      plain version's time over all tiles (in tile batches), and the
      least time the card could take for the same work (the pairs and
      slots these inputs make the kernel walk and blend, read from the
-     plain walk's masks; see FLOPS_WALKED);
+     plain walk's masks; see FLOPS_WALKED); for K2 and K3 the (warp, slot)
+     and (warp, 16-slot sub-chunk) steps walked and the share in which
+     some lane blended, for warps of 32 consecutive pixels (what a per-slot
+     warp-shuffle reduction pays); K2, K3 and K6 launched twice must give
+     the same bits; then K2/K1 and K3/K1 of this run;
   4. a `{"kernels": [...]}` line (launches: the two engine runs' sum); the
      card line; and as the last line
      `{"ok": true, "device": {...}}`.
@@ -160,8 +167,9 @@ def run_frames(engine, n, wrappers, valid0, tag):
     return launches, [ft for _, ft, _, _ in rows]
 
 
-def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median wall time of one call on the device, by CUDA events."""
+def event_ms(fn, iters: int = 10, warmup: int = 2, per: int = 1) -> float:
+    """Device time of one call by CUDA events: the median over `iters` runs
+    of `per` back-to-back calls, divided by `per`."""
     import torch
     for _ in range(warmup):
         fn()
@@ -170,10 +178,11 @@ def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     times.sort()
     return times[len(times) // 2]
 
@@ -195,6 +204,40 @@ def pick_tiles(counts, k: int = 64, seed: int = 0):
     return torch.sort(torch.cat([top, pick])).values
 
 
+def scaled_errors(got, ref):
+    """|got - ref| scaled per last-axis channel by that channel's max |ref|:
+    (max, 99.9th percentile, median, max abs error)."""
+    import torch
+    got = got.double().reshape(-1, got.shape[-1])
+    ref = ref.double().reshape(-1, ref.shape[-1])
+    scale = torch.clamp(ref.abs().amax(0), min=1e-30)
+    scaled = ((got - ref).abs() / scale).reshape(-1)
+    sample = scaled[torch.randperm(scaled.numel(),
+                                   device=scaled.device)[:1 << 24]]
+    return (scaled.max().item(), torch.quantile(sample, 0.999).item(),
+            sample.median().item(), (got - ref).abs().max().item())
+
+
+def k2_precision(got, ref32, *args):
+    """Where K2's disagreement with its plain version comes from, on the
+    checked tiles: the kernel and the plain f32 version each against the
+    plain version run in f64 (same walk), and the TF32 mirror of the
+    kernels' sums (`backward_sums_tf32`: the split products and the moment
+    epilogue over exact f32 sums) against the plain f32 version."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    a64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point()
+           else a for a in args]
+    ref64 = cs.splat_backward_pose_plain(*a64)
+    mirror = cs.splat_backward_pose_plain(
+        *args, sums=cs.backward_sums_tf32(*args))
+    fmt = lambda e: f"max {e[0]:.3e} 99.9th {e[1]:.3e} median {e[2]:.3e}"
+    print(f"  K2 precision (scaled as above): kernel vs plain f64 "
+          f"{fmt(scaled_errors(got, ref64))}; plain f32 vs plain f64 "
+          f"{fmt(scaled_errors(ref32, ref64))}; TF32 mirror vs plain f32 "
+          f"{fmt(scaled_errors(mirror, ref32))}")
+
+
 def check_close(name, got, ref, bulk):
     """Errors scaled per last-axis channel by that channel's max |ref|:
       - 99.9% of elements within `bulk`: f32 sums in another order, and a
@@ -205,16 +248,7 @@ def check_close(name, got, ref, bulk):
         a threshold (alpha >= 1/255, T after >= 1e-4) can be kept by one and
         dropped by the other; one such pair moves its pixel by at most
         alpha * T (~1/255 at the alpha cut, ~1e-2 at the T cut)."""
-    import torch
-    got = got.double().reshape(-1, got.shape[-1])
-    ref = ref.double().reshape(-1, ref.shape[-1])
-    scale = torch.clamp(ref.abs().amax(0), min=1e-30)
-    scaled = ((got - ref).abs() / scale).reshape(-1)
-    err = scaled.max().item()
-    p999 = torch.quantile(scaled[torch.randperm(scaled.numel(),
-                                                device=scaled.device)[:1 << 24]],
-                          0.999).item()
-    abs_err = (got - ref).abs().max().item()
+    err, p999, _, abs_err = scaled_errors(got, ref)
     ok = err <= MAX_SCALED_ERR and p999 <= bulk
     print(f"  {name}: max abs err {abs_err:.3e}; scaled err max {err:.3e} "
           f"(tolerance {MAX_SCALED_ERR:g}), 99.9th percentile {p999:.3e} "
@@ -226,15 +260,27 @@ def check_close(name, got, ref, bulk):
 
 def splat_work(slots8, counts, cp, tiles_x):
     """(pairs walked, pairs blended, slots walked) of the splat kernels on
-    these inputs, from the plain walk's masks."""
+    these inputs, from the plain walk's masks; then what a per-slot
+    warp-shuffle reduction meets, per warp of 32 consecutive pixels: the
+    (warp, slot) steps some lane walks, those in which some lane blends,
+    and the same two counts for (warp, 16-slot sub-chunk) steps."""
+    import torch
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
-    walked = blended = slots = 0
+    n = [0] * 7
     for ids in batched(slots8.shape[0], 128):
         w = cs._walk(slots8[ids], counts[ids], cp, tiles_x, ids)
-        walked += int(w["walked"].sum())
-        blended += int((w["keep"] & w["include"]).sum())
-        slots += int(w["walked"].any(1).sum())
-    return walked, blended, slots
+        wk, bl = w["walked"], w["keep"] & w["include"]
+        T, P, M = wk.shape
+        wk_w = wk.view(T, P // 32, 32, M).any(2)                # (T, 8, M)
+        bl_w = bl.view(T, P // 32, 32, M).any(2)
+        pad = -M % 16
+        sub = lambda x: torch.nn.functional.pad(x, (0, pad)).view(
+            T, P // 32, -1, 16).any(3)
+        for i, v in enumerate((wk.sum(), bl.sum(), wk.any(1).sum(),
+                               wk_w.sum(), bl_w.sum(), sub(wk_w).sum(),
+                               sub(bl_w).sum())):
+            n[i] += int(v)
+    return tuple(n)
 
 
 def blend_work(recs, counts, tiles_x):
@@ -251,7 +297,7 @@ def blend_work(recs, counts, tiles_x):
 
 
 def bound(name, bytes_moved, work):
-    walked, blended, slots = work
+    walked, blended, slots = work[:3]
     flops = (walked * FLOPS_WALKED[name] + blended * FLOPS_BLENDED[name]
              + slots * FLOPS_SLOT[name])
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -525,6 +571,7 @@ def main() -> int:
     }
     counts_of = {"K1": counts_t, "K2": counts_t, "K3": kfc.counts,
                  "K4": counts4, "K5": counts5, "K6": counts_t}
+    times = {}
     for name, sp in specs.items():
         print(f"[{name}] vs plain on 128 tiles")
         full = sp["kernel"]()
@@ -534,7 +581,17 @@ def main() -> int:
         got = sp["sub"](full, ids)
         ref_cmp = ref.transpose(1, 2) if name in ("K1", "K6") else ref
         err = check_close(name, got, ref_cmp, sp["tol"])
-        ms = event_ms(sp["kernel"])
+        if name in ("K2", "K3", "K6"):
+            same = torch.equal(full, sp["kernel"]())
+            print(f"  {name}: a repeated launch gives the same bits: {same}")
+            if not same:
+                raise AssertionError(f"{name} is not deterministic")
+        if name == "K2":
+            k2_precision(got, ref_cmp, slots_t[ids], counts_t[ids], cp_t,
+                         tiles_x, accum_t[ids], g_t[ids], ids)
+        # one wrapper call; and 20 calls back to back, per call
+        ms = times[name] = event_ms(sp["kernel"])
+        b2b_ms = event_ms(sp["kernel"], per=20)
 
         def plain_all():
             for b in batched(sp["T"], 64):
@@ -542,17 +599,26 @@ def main() -> int:
         plain_ms = event_ms(plain_all, iters=1, warmup=1)
         work = sp["work"]()
         b_ms, b_by = bound(name, sp["bytes"](work[2]), work)
-        print(f"  {name}: {ms:.4f} ms (kernel, median) | plain {plain_ms:.2f} "
+        print(f"  {name}: {ms:.4f} ms (one wrapper call, median; 20 calls "
+              f"back to back {b2b_ms:.4f} ms per call) | plain {plain_ms:.2f} "
               f"ms | bound {b_ms:.4f} ms ({b_by}; {work[0]} pairs walked, "
               f"{work[1]} blended, {work[2]} slots walked) | launches on the "
               f"engine paths {launches[name]} (slice {launches1[name]}, "
               f"generic route {launches2[name]})")
+        if name in ("K2", "K3"):
+            print(f"  {name}: (warp, slot) steps walked {work[3]}, with some "
+                  f"lane blending {work[4]} ({work[4] / max(work[3], 1):.4f}); "
+                  f"(warp, 16-slot sub-chunk) steps walked {work[5]}, with "
+                  f"some lane blending {work[6]} "
+                  f"({work[6] / max(work[5], 1):.4f})")
         report.append({"name": name, "route": sp["route"],
                        "source": sp["source"], "replaces": sp["replaces"],
                        "launches": launches[name], "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": None})
 
+    print(f"[ratios] same run: K2/K1 {times['K2'] / times['K1']:.3f}, "
+          f"K3/K1 {times['K3'] / times['K1']:.3f}")
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

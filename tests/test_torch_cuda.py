@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from torch_port_util import (POSE_Q, POSE_T, TILES_X, assert_close_scaled, np_,
-                             scene_np, torch_cam, torch_params)
+                             random_tile_slots, scene_np, slots_at, torch_cam,
+                             torch_params)
 from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
@@ -142,6 +143,65 @@ def test_splat_kernels_match_plain(card, seed):
                       None)["walked"].any(1)
     assert bool((~walked).any())
     np.testing.assert_array_equal(np_(got.transpose(1, 2))[np_(~walked)], 0.0)
+
+
+def _hand_case(kind):
+    """The 9 test tiles, 128 hand-placed slots each (identity pose).
+    "ragged_counts": counts 0 and others that are no multiple of the
+    kernels' 16-slot sub-chunk; "early_stop": the centre tile starts with 8
+    wide opaque splats, so all its pixels stop within the first
+    sub-chunk."""
+    slots = random_tile_slots(range(9), TILES_X, 128, seed=12)
+    counts = np.full(9, 128, np.int32)
+    if kind == "ragged_counts":
+        counts[:] = [0, 1, 15, 17, 33, 63, 65, 100, 128]
+    else:
+        slots[4, :, :8] = slots_at(np.full(8, 24.0), np.full(8, 24.0), 1.0,
+                                   48.0, 8.0, (0.5, 0.5, 0.5))
+    g = np.random.default_rng(13).standard_normal((9, 8, 256)).astype(
+        np.float32)
+    g[:, 6:] = 0.0
+    return (torch.as_tensor(slots), torch.as_tensor(counts),
+            torch.eye(3).reshape(9), torch.zeros(3), torch.as_tensor(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["track_cache", "ragged_counts", "early_stop"])
+def test_splat_backwards_edge_cases_repeat_bitwise(card, kind):
+    """K2, K3 and K6 against their plain versions on a tile with count 0,
+    counts off the sub-chunk and a tile whose pixels all stop in its first
+    sub-chunk; a second launch on the same inputs gives the same bits; the
+    slots no pixel walked get exact zeros."""
+    cam = torch_cam()
+    slots, counts, R9, t, g = (_case("cpu", seed=0) if kind == "track_cache"
+                               else _hand_case(kind))
+    out = CS.splat_forward(slots, R9, t, counts, cam, TILES_X)
+    c_args = (slots, R9, t, counts, out, g, cam, TILES_X)
+    d_args = tuple(x.to(card) if isinstance(x, torch.Tensor) else x
+                   for x in c_args)
+    walked = CS._walk(slots, counts, CS.cp_vector(R9, t, cam), TILES_X,
+                      None)["walked"].any(1)                     # (T, M)
+    if kind == "early_stop":
+        assert bool(walked[4, :16].any()) and not bool(walked[4, 16:].any())
+    for fn in (CS.splat_backward_pose, CS.splat_backward_vals_rows,
+               CS.splat_backward_all):
+        got = fn(*d_args)
+        again = fn(*d_args)
+        assert torch.equal(got, again), f"{fn.__name__}: launches differ"
+        ref = fn(*c_args)
+        if fn is CS.splat_backward_pose:
+            assert_close_scaled(got, ref, 1e-3, "pose partials")
+            if kind == "ragged_counts":
+                np.testing.assert_array_equal(np_(got)[0], 0.0)
+            continue
+        if fn is CS.splat_backward_all:
+            got, ref = got.transpose(1, 2), ref.transpose(1, 2)
+        else:
+            np.testing.assert_array_equal(np_(got)[..., :3], 0.0)
+        for col in range(8):
+            assert_close_scaled(got[..., col], ref[..., col], 1e-3,
+                                f"{fn.__name__} col {col}")
+        np.testing.assert_array_equal(np_(got)[np_(~walked)], 0.0)
 
 
 @pytest.mark.cuda

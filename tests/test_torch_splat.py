@@ -55,6 +55,24 @@ def case():
                 rows_ref=np.asarray(rows)[:T])
 
 
+def test_camera_vector_matches_jax_and_reuses_constants(case):
+    """cp_vector gives the JAX `_cp_vector`'s first 18 entries for any pose,
+    and keeps one tensor of camera constants per camera and device."""
+    cam, jcam = torch_cam(), jax_cam()
+    for k in range(3):
+        R9 = case["R9"] * (1.0 + k)
+        t = case["t"] + float(k)
+        want = np.asarray(PS._cp_vector(jnp.asarray(np_(R9)),
+                                        jnp.asarray(np_(t)), jcam))[:18]
+        np.testing.assert_array_equal(np_(CS.cp_vector(R9, t, cam)), want)
+    consts = CS._CAM_CONSTS[(cam, case["R9"].device)]
+    CS.cp_vector(case["R9"], case["t"], cam)
+    assert CS._CAM_CONSTS[(cam, case["R9"].device)] is consts
+    other = cam._replace(fx=cam.fx * 2.0)
+    assert float(CS.cp_vector(case["R9"], case["t"], other)[12]) == other.fx
+    assert CS._CAM_CONSTS[(cam, case["R9"].device)] is consts
+
+
 def test_scene_exercises_saturation_and_termination(case):
     assert int(case["counts"].max()) == MPT
     T_end = case["out_ref"][:, 6]

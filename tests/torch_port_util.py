@@ -61,6 +61,37 @@ def torch_params(p):
         "log_scales")])
 
 
+def slots_at(px, py, z, sigma_px, logit, rgb, fx=FX, fy=FY, cx=CX, cy=CY):
+    """(8, n) f32 slot rows [wx wy wz logit_op log_scale r g b] of isotropic
+    Gaussians whose 2D means land on pixel coordinates (px, py) (the
+    kernels' mean2d, pixel centres at integers) at depth z, about sigma_px
+    pixels wide on screen, seen from the identity pose."""
+    px, py, z, sig, lo = (np.asarray(v, np.float64) for v in
+                          np.broadcast_arrays(px, py, z, sigma_px, logit))
+    x = (px + 0.5 - cx) * z / fx
+    y = (py + 0.5 - cy) * z / fy
+    ls = np.log(sig * z / fx)
+    rgb = np.broadcast_to(np.asarray(rgb, np.float64), px.shape + (3,))
+    return np.stack([x, y, z, lo, ls, rgb[..., 0], rgb[..., 1], rgb[..., 2]]
+                    ).astype(np.float32)
+
+
+def random_tile_slots(tile_ids, tiles_x, mpt, seed, sigma=(1.0, 6.0), **cam):
+    """(T, 8, mpt) slots for the tiles `tile_ids`: mpt depth-ordered
+    Gaussians around each tile (means up to 8 px outside it), for the
+    identity pose and the intrinsics in `cam` (default: the test camera)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((len(tile_ids), 8, mpt), np.float32)
+    for i, t in enumerate(tile_ids):
+        ty, tx = divmod(int(t), tiles_x)
+        z = np.sort(rng.uniform(1.5, 3.5, mpt))
+        out[i] = slots_at(tx * 16 + rng.uniform(-8, 24, mpt),
+                          ty * 16 + rng.uniform(-8, 24, mpt), z,
+                          rng.uniform(*sigma, mpt), rng.uniform(-1, 3, mpt),
+                          rng.uniform(0, 1, (mpt, 3)), **cam)
+    return out
+
+
 POSE_Q = np.array([0.999, 0.01, -0.02, 0.005], np.float32)
 POSE_T = np.array([0.02, -0.01, 0.03], np.float32)
 

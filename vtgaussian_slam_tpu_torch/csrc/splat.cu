@@ -30,18 +30,53 @@
 // The backwards (K2, K3, K6: one template, MODE 0 / 1 / 2) replay the same
 // walk front to back and use the suffix identity
 // dL/dalpha_k = T_k (g.c_k) - (G - H_k) / (1 - alpha_k), with
-// G = sum_ch g*out and H_k the inclusive prefix of w_j (g.c_j). Per-slot
-// sums over the tile's pixels are a warp shuffle reduction (skipped when no
-// lane of the warp touched the slot) into shared memory, summed over the 8
-// warps in a fixed order. No atomics: results are deterministic.
+// G = sum_ch g*out and H_k the inclusive prefix of w_j (g.c_j).
 //
-// What bounds it on the H100: the walk is issue-bound on fp32 math and
-// exp per (pixel, slot) pair; slot bytes are read once per tile (at room0
-// shapes ~53 MB, ~16 us at 3.35 TB/s) and stay far below the math. The
-// simple design keeps the walk in registers and shared memory and pays one
-// block-wide barrier per chunk for the early exit; it makes no attempt yet
-// to overlap staging with the walk or to spread a tile over more threads.
+// Their per-slot sums over the tile's pixels follow _bwd_kernel's algebra
+// (pallas_splat.py: _phi_local, the M = phi^T g_power and g_eff @ weight
+// contractions, which the TPU ran on its MXU) on the tensor cores, instead
+// of a ballot and a 5-level warp-shuffle tree per value for every (warp,
+// slot) some lane blended. Warp w owns the 8 x 4 pixel block at
+// (8 (w & 1), 4 (w >> 1)). Slots come 64 per chunk, 16 per sub-chunk. Each
+// pixel writes two values per slot of the sub-chunk, gp = g_alpha * alpha
+// and the blend weight w (0 where the pair was not blended), into its
+// warp's [slot][pixel] buffer; the warp then takes, over its 32 pixels,
+//   Mg = GP (16 slots x 32) . PHI (32 x 8), PHI = [cx^2 cx*cy cy^2 cx cy 1 0 0]
+//   Mw = W  (16 slots x 32) . GC  (32 x 8), GC  = [g0 g1 g2 g3 g5 0 0 0]
+// with mma.sync m16n8k8 (TF32 in, f32 accumulate), cx, cy the pixel's
+// coordinates about the tile centre (lx - 7.5, ly - 7.5; exact in TF32).
+// TF32 keeps 10 mantissa bits, so the f32 operands are split a = hi + lo:
+// GP . PHI as hi + lo (PHI is exact), W . GC as hi.hi + hi.lo + lo.hi, each
+// in its own accumulator. A pixel row of the block in which no pixel
+// blended is skipped (its k-slice adds nothing), and so is a sub-chunk in
+// which none did. The epilogue, once per slot, sums the 8 warps' partials in
+// a fixed order and rebuilds the dx / dy sums from the moments about the
+// slot mean (mx, my about the centre): s_dx = M3 - mx M5,
+// s_dxx = M0 - 2 mx M3 + mx^2 M5, ...; sum g_alpha expp = M5 / op; then the
+// conic, Jacobian and mean chain. K2's 12 pose sums go from the slot
+// threads through shared memory to a fixed-order sum. No warp shuffle and
+// no float atomics: results are deterministic.
+//
+// The walk around the products: each slot carries a box bounding the
+// pixels where alpha >= 1/255 can hold, and a warp evaluates only the slots
+// whose box meets its block. A pixel evaluates 4 live slots at a time
+// (alpha, g.c and 1 / (1 - alpha) are independent of the walk's state),
+// then blends them front to back with selects rather than branches, so the
+// chain from one blend to the next is T and H alone. Raw slot records are
+// staged by cp.async, the next chunk's copies in flight while the current
+// chunk is walked; warps 2-3 project the next chunk while warps 0-1 run the
+// current one's epilogue.
+//
+// What bounds it on the H100: neither the bytes (each slot row is read once
+// per tile, ~53 MB at room0 shapes, ~16 us at 3.35 TB/s) nor the operations
+// (~0.125 ms at the fp32 peak, chip_smoke.py's bound) but the instruction
+// count and latency of the per-pair walk, which alone takes about as long
+// as K1; the products come on top (PERF.md). ptxas (sm_90a, CUDA
+// 12.8): 80 registers, so 3 CTAs share an SM (spills: 40 B in K2, none in
+// K3, 8 B in K6), and 74,488 B of dynamic shared memory per CTA, set with
+// cudaFuncSetAttribute in launch_bwd.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -149,10 +184,103 @@ __device__ __forceinline__ void stage_slot(Stage& s, const float* __restrict__ t
   s.z[k] = q.z;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// ---- the backwards' shared memory and tensor-core helpers ----------------
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int BCH = 64;   // slots staged per chunk in the backwards
+constexpr int SC = 16;    // slots per sub-chunk: the mma's M
+constexpr int PST = 260;  // row stride of the PHI / GC tables: 4 mod 32, so a
+                          // B-fragment load (rows gq, columns tq) hits 32 banks
+constexpr int NP = 11;    // per-slot partials Mg[0:6], Mw[0:5] (odd stride:
+                          // the epilogue's reads are conflict-free)
+constexpr int NG = 4;     // slots a pixel evaluates together (ILP)
+static_assert(BCH % SC == 0 && BCH <= TPX, "a chunk holds whole sub-chunks");
+
+struct BwdSmem {
+  float raw[2][8 * BCH];            // raw slot rows, double buffered
+  float4 s0[BCH];                   // projected: mx my ca cb
+  float2 s1[BCH];                   //            cc op
+  float4 s2[BCH];                   //            r g b z
+  float4 box[BCH];                  // xlo xhi ylo yhi: where a pair can be kept
+  float2 pw[NWARP][SC * 32];        // per warp: (gp, w), [slot][pixel ^ sw]
+  float part[NWARP][BCH][NP];       // per warp and slot: Mg, Mw partials
+  float phi[6][PST];                // PHI^T: [cx^2 cx*cy cy^2 cx cy 1] per pixel
+  float gct[5][PST];                // GC^T: [g0 g1 g2 g3 g5] per pixel
+  float cam[18];
+};
+
+// column swizzle of row r of a (gp, w) buffer: the walk's row stores and
+// the A-fragment loads (rows gq, gq + 8; columns 8 ks + tq, + 4) are both
+// free of bank conflicts
+__device__ __forceinline__ int pw_at(int r, int c) {
+  return r * 32 + (c ^ ((4 * r) & 31));
+}
+
+// Project slot k of the chunk into the walk's stage. box bounds the pixels
+// where one of its pairs can be kept: alpha >= 1/255 needs
+// op exp(-Q/2) >= 1/255, i.e. the conic form Q <= r2 = 2 ln(255 op), an
+// ellipse whose x / y half-extents are sqrt(r2 v00) / sqrt(r2 v11) for the
+// 2D covariance v. r2 is padded by 0.1% and 1e-4, far above the rounding of
+// the walk's own test, so every pair the box drops is one the cuts drop
+// (op < 1/255: an empty box).
+__device__ __forceinline__ void stage_bwd(BwdSmem& sm, const float* raw, int k,
+                                          float tox, float toy) {
+  const Cam cam = load_cam(sm.cam);
+  const Proj q = project(raw, BCH, k, cam);
+  const float mx = q.m2x - tox, my = q.m2y - toy;
+  float4 box = make_float4(1e30f, -1e30f, 1e30f, -1e30f);
+  if (q.op >= ALPHA_MIN) {
+    const float r2 = 2.0f * logf(255.0f * q.op) * 1.001f + 1e-4f;
+    const float hx = sqrtf(r2 * (q.s2 * q.ax + DILATION));
+    const float hy = sqrtf(r2 * (q.s2 * q.cy_ + DILATION));
+    box = make_float4(mx - hx, mx + hx, my - hy, my + hy);
+  }
+  sm.s0[k] = make_float4(mx, my, q.ca, q.cb);
+  sm.s1[k] = make_float2(q.cc, q.op);
+  sm.s2[k] = make_float4(raw[5 * BCH + k], raw[6 * BCH + k], raw[7 * BCH + k],
+                         q.z);
+  sm.box[k] = box;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// copy slot rows [c0, c0 + BCH) of the tile into dst (8, BCH); slots at or
+// past count are zero-filled
+__device__ __forceinline__ void copy_raw(float* dst, const float* ts, int mpt,
+                                         int c0, int count, int p) {
+  for (int i = p; i < 8 * BCH; i += TPX) {
+    const int row = i / BCH, col = i % BCH;
+    const bool ok = c0 + col < count;
+    cp_async4(dst + i, ts + (size_t)row * mpt + (ok ? c0 + col : 0), ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// a = hi + lo for the TF32 products: hi is a rounded to TF32 (to nearest,
+// ties away from zero: the bits cvt.rna.tf32.f32 gives a finite a), lo =
+// a - hi exactly; the mma reads the top 19 bits of lo, which leaves at
+// most 2^-22 |a|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16x8, f32) += a (16x8, TF32, row-major) . b (8x8, TF32, col-major)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __global__ void __launch_bounds__(TPX)
@@ -213,32 +341,27 @@ splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
 // per-slot chain to d mean_cam together with K3's per-slot values, written
 // per slot instead of reduced per tile
 template <int MODE>
-__global__ void __launch_bounds__(TPX)
+__global__ void __launch_bounds__(TPX, 3)
 splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts,
                  const float* __restrict__ cp, const float* __restrict__ out,
                  const float* __restrict__ gin, int mpt, int tiles_x,
                  float* __restrict__ grad) {
-  // per-slot pixel sums:
-  //   pose:      [sum gp dx, sum gp dy, sum gp dx^2, sum gp dx dy,
-  //               sum gp dy^2, sum w (g3 + 2 z g5)]
-  //   vals_rows: [sum gp dx^2, sum gp dx dy, sum gp dy^2,
-  //               sum galpha expp, sum w g0, sum w g1, sum w g2]
-  //   all:       the six of pose, then sum galpha expp, sum w g0..g2
-  constexpr int NV = MODE == 0 ? 6 : (MODE == 1 ? 7 : 10);
-  constexpr int I_GE = MODE == 1 ? 3 : 6;    // sum galpha expp
-  constexpr int I_RGB = I_GE + 1;            // sum w g0..g2
-  __shared__ Stage s;
-  __shared__ float part[NWARP][NV][CH];
-  __shared__ float red_s[NWARP][12];
+  extern __shared__ __align__(16) unsigned char smem_buf[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_buf);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int warp = p >> 5, lane = p & 31;
+  const int gq = lane >> 2, tq = lane & 3;   // mma group and thread in group
   const int count = counts[tile];
-  const Cam cam = load_cam(cp);
   const float* ts = slots + (size_t)tile * 8 * mpt;
   const float tox = (float)((tile % tiles_x) * TILE);
   const float toy = (float)((tile / tiles_x) * TILE);
-  const float lx = (float)(p % TILE), ly = (float)(p / TILE);
+  // warp w walks the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1))
+  const int bx0 = 8 * (warp & 1), by0 = 4 * (warp >> 1);
+  const int pix = (by0 + (lane >> 3)) * TILE + bx0 + (lane & 7);
+  const float wx0 = (float)bx0, wx1 = wx0 + 7.0f;
+  const float wy0 = (float)by0, wy1 = wy0 + 3.0f;
+  const float lx = (float)(pix % TILE), ly = (float)(pix / TILE);
 
   const float* gt = gin + (size_t)tile * NCH * TPX;
   const float* ot = out + (size_t)tile * NCH * TPX;
@@ -246,99 +369,196 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   float GG = 0.0f;
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch) {
-    const float gv = gt[ch * TPX + p];
-    GG += gv * ot[ch * TPX + p];
+    const float gv = gt[ch * TPX + pix];
+    GG += gv * ot[ch * TPX + pix];
     if (ch < 6) gc[ch] = gv;
   }
 
+  {
+    const float cx = lx - 7.5f, cy = ly - 7.5f;
+    sm.phi[0][pix] = cx * cx;
+    sm.phi[1][pix] = cx * cy;
+    sm.phi[2][pix] = cy * cy;
+    sm.phi[3][pix] = cx;
+    sm.phi[4][pix] = cy;
+    sm.phi[5][pix] = 1.0f;
+#pragma unroll
+    for (int ch = 0; ch < 5; ++ch) sm.gct[ch][pix] = gc[ch < 4 ? ch : 5];
+  }
+  if (p < 18) sm.cam[p] = cp[p];
+  if (count > 0) {
+    copy_raw(sm.raw[0], ts, mpt, 0, count, p);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
   float T = 1.0f, H = 0.0f;
   bool done = false;
-  float red[12];
+  float red[12];   // K2: this slot thread's [dR dt] sums
 #pragma unroll
   for (int i = 0; i < 12; ++i) red[i] = 0.0f;
   int written = 0;   // vals_rows, all: slots [0, written) hold their gradient
+  float2* pwb = sm.pw[warp];
+  const char* pa_lane = reinterpret_cast<const char*>(pwb) + gq * 256 + tq * 8;
+  const uint32_t swz = 32u * gq;
+  int buf = 0;
+  // the first chunk's stage; each later one is staged by warps 2-3 while
+  // warps 0-1 finish the chunk before it
+  if (p < min(BCH, count)) stage_bwd(sm, sm.raw[0], p, tox, toy);
+  __syncthreads();
+  for (int c0 = 0; c0 < count; c0 += BCH, buf ^= 1) {
+    const int n = min(BCH, count - c0);
+    const bool more = c0 + BCH < count;
+    if (more) copy_raw(sm.raw[buf ^ 1], ts, mpt, c0 + BCH, count, p);
+    const float* raw = sm.raw[buf];
 
-  for (int c0 = 0; c0 < count; c0 += CH) {
-    const int n = min(CH, count - c0);
-    if (p < n) stage_slot(s, ts, mpt, c0, p, cam, tox, toy);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      float v[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) v[i] = 0.0f;
+    for (int k0 = 0; k0 < n; k0 += SC) {
+      // the sub-chunk's slots that one of this warp's 8 x 4 pixels can keep
+      bool in = lane < SC && k0 + lane < n;
+      if (in) {
+        const float4 c = sm.box[k0 + lane];
+        in = c.x <= wx1 && c.y >= wx0 && c.z <= wy1 && c.w >= wy0;
+      }
+      const unsigned live = __ballot_sync(FULL, in);   // bit j: slot k0 + j
       bool act = false;
-      if (!done) {
-        const float dx = lx - s.mx[k], dy = ly - s.my[k];
-        const float power =
-            -0.5f * (s.ca[k] * dx * dx + s.cc[k] * dy * dy) - s.cb[k] * dx * dy;
-        const float expp = expf(power);
-        const float araw = s.op[k] * expp;
-        const float alpha = fminf(ALPHA_MAX, araw);
-        if (power <= POWER_MAX && alpha >= ALPHA_MIN) {
-          const float Ta = T * (1.0f - alpha);
-          if (Ta < T_TERM) {
-            done = true;
-          } else {
-            const float w = alpha * T;
-            const float z = s.z[k];
-            const float Gc = gc[0] * s.r[k] + gc[1] * s.g[k] + gc[2] * s.b[k] +
-                             gc[3] * z + gc[4] + gc[5] * z * z;
-            H += w * Gc;
-            const float ga = (araw > ALPHA_MAX)
+      if (live != 0u && !__all_sync(FULL, done)) {
+        unsigned m = live;
+        while (m != 0u) {
+          // evaluate NG slots independently (alpha, g.c, 1 / (1 - alpha)),
+          // then blend them front to back with selects, not branches: the
+          // chain from one blend to the next is T and H alone
+          int kj[NG];
+          float al[NG], ar[NG], gcv[NG], rom[NG];
+          bool kp[NG];
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            kj[j] = m != 0u ? __ffs(m) - 1 : -1;
+            m &= m - 1u;
+            const int k = k0 + max(kj[j], 0);
+            const float4 s0 = sm.s0[k];
+            const float2 s1 = sm.s1[k];
+            const float4 s2 = sm.s2[k];
+            const float dx = lx - s0.x, dy = ly - s0.y;
+            const float power = -0.5f * (s0.z * dx * dx + s1.x * dy * dy) -
+                                s0.w * dx * dy;
+            ar[j] = s1.y * expf(power);
+            al[j] = fminf(ALPHA_MAX, ar[j]);
+            kp[j] = kj[j] >= 0 && power <= POWER_MAX && al[j] >= ALPHA_MIN;
+            const float z = s2.w;
+            gcv[j] = gc[0] * s2.x + gc[1] * s2.y + gc[2] * s2.z + gc[3] * z +
+                     gc[4] + gc[5] * z * z;
+            rom[j] = __fdividef(1.0f, fmaxf(1.0f - al[j], 1e-6f));
+          }
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            if (kj[j] < 0) break;
+            const bool keep = kp[j] && !done;
+            const float Ta = T * (1.0f - al[j]);
+            const bool stop = keep && Ta < T_TERM;
+            const bool blend = keep && !stop;
+            done = done || stop;
+            const float w = blend ? al[j] * T : 0.0f;
+            H += w * gcv[j];
+            const float ga = (ar[j] > ALPHA_MAX)
                                  ? 0.0f
-                                 : T * Gc - (GG - H) / fmaxf(1.0f - alpha, 1e-6f);
-            const float gp = ga * alpha;
-            if (MODE != 1) {
-              v[0] = gp * dx;
-              v[1] = gp * dy;
-              v[2] = gp * dx * dx;
-              v[3] = gp * dx * dy;
-              v[4] = gp * dy * dy;
-              v[5] = w * (gc[3] + 2.0f * z * gc[5]);
-            } else {
-              v[0] = gp * dx * dx;
-              v[1] = gp * dx * dy;
-              v[2] = gp * dy * dy;
-            }
-            if (MODE != 0) {
-              v[I_GE] = ga * expp;
-              v[I_RGB] = w * gc[0];
-              v[I_RGB + 1] = w * gc[1];
-              v[I_RGB + 2] = w * gc[2];
-            }
-            act = true;
-            T = Ta;
+                                 : T * gcv[j] - (GG - H) * rom[j];
+            const float gp = blend ? ga * al[j] : 0.0f;
+            act = act || blend;
+            T = blend ? Ta : T;
+            pwb[pw_at(kj[j], lane)] = make_float2(gp, w);
           }
         }
       }
-      const bool any = __ballot_sync(0xffffffffu, act) != 0u;
-      if (any) {
+      // the per-slot pixel sums of the sub-chunk over the warp's 32 pixels
+      float mg[2][4] = {}, mw[3][4] = {};
+      // lanes 8 ks .. 8 ks + 7 (pixel row ks of the block) are k-slice ks
+      // of the products; one in which no pixel blended adds nothing
+      const unsigned am = __ballot_sync(FULL, act);
+      if (am != 0u) {
+        __syncwarp();
+        // rows of slots the warp skipped hold stale values: read them as 0
+        const bool r0 = (live >> gq) & 1u, r1 = (live >> (gq + 8)) & 1u;
+        const float2 zero = make_float2(0.0f, 0.0f);
 #pragma unroll
-        for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
-      }
-      if (lane == 0) {
+        for (int ks = 0; ks < 4; ++ks) {
+          if (((am >> (8 * ks)) & 0xffu) == 0u) continue;
+          // pw_at(gq (+ 8), 8 ks + tq (+ 4)) in bytes: the swizzle of rows
+          // gq and gq + 8 is 32 gq, the column's 8 tq stays clear of it
+          const char* a0 = pa_lane + ((64u * ks) ^ swz);
+          const char* a1 = pa_lane + ((64u * ks + 32u) ^ swz);
+          const float2 e[4] = {
+              r0 ? *reinterpret_cast<const float2*>(a0) : zero,
+              r1 ? *reinterpret_cast<const float2*>(a0 + 2048) : zero,
+              r0 ? *reinterpret_cast<const float2*>(a1) : zero,
+              r1 ? *reinterpret_cast<const float2*>(a1 + 2048) : zero};
+          // B: column gq of PHI and of GC at the pixels of lanes 8 ks + tq
+          // and 8 ks + tq + 4
+          const int px = (by0 + ks) * TILE + bx0 + tq;
+          const uint32_t bp0 = gq < 6 ? __float_as_uint(sm.phi[gq][px]) : 0u;
+          const uint32_t bp1 = gq < 6 ? __float_as_uint(sm.phi[gq][px + 4]) : 0u;
+          uint32_t bgh0, bgl0, bgh1, bgl1;
+          split_tf32(gq < 5 ? sm.gct[gq][px] : 0.0f, bgh0, bgl0);
+          split_tf32(gq < 5 ? sm.gct[gq][px + 4] : 0.0f, bgh1, bgl1);
+          uint32_t gh[4], gl[4], wh[4], wl[4];
 #pragma unroll
-        for (int i = 0; i < NV; ++i) part[warp][i][k] = v[i];
+          for (int i = 0; i < 4; ++i) {
+            split_tf32(e[i].x, gh[i], gl[i]);
+            split_tf32(e[i].y, wh[i], wl[i]);
+          }
+          mma_tf32(mg[0], gh, bp0, bp1);
+          mma_tf32(mg[1], gl, bp0, bp1);
+          mma_tf32(mw[0], wh, bgh0, bgh1);
+          mma_tf32(mw[1], wh, bgl0, bgl1);
+          mma_tf32(mw[2], wl, bgh0, bgh1);
+        }
       }
+      // D rows gq, gq + 8 (slots), columns 2 tq, 2 tq + 1
+      if (tq < 3) {
+        float* r0 = sm.part[warp][k0 + gq];
+        float* r1 = sm.part[warp][k0 + gq + 8];
+        r0[2 * tq] = mg[1][0] + mg[0][0];
+        r0[2 * tq + 1] = mg[1][1] + mg[0][1];
+        r1[2 * tq] = mg[1][2] + mg[0][2];
+        r1[2 * tq + 1] = mg[1][3] + mg[0][3];
+        r0[6 + 2 * tq] = (mw[2][0] + mw[1][0]) + mw[0][0];
+        r1[6 + 2 * tq] = (mw[2][2] + mw[1][2]) + mw[0][2];
+        if (tq < 2) {   // Mw has 5 columns
+          r0[7 + 2 * tq] = (mw[2][1] + mw[1][1]) + mw[0][1];
+          r1[7 + 2 * tq] = (mw[2][3] + mw[1][3]) + mw[0][3];
+        }
+      }
+      __syncwarp();   // the buffer is rewritten by the next sub-chunk
     }
+    cp_async_wait_all();   // the next chunk's rows, for its stage below
     __syncthreads();
 
-    // thread k finalizes slot c0 + k: the conic -> covariance chain
+    // thread k finalizes slot c0 + k: moments -> sums -> the conic chain
     if (p < n) {
-      float sum[NV];
+      float M[6], Wm[5];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        float a = 0.0f;
+      for (int i = 0; i < 6; ++i) {
+        float a = 0.0f, b = 0.0f;
 #pragma unroll
-        for (int w8 = 0; w8 < NWARP; ++w8) a += part[w8][i][p];
-        sum[i] = a;
+        for (int w8 = 0; w8 < NWARP; ++w8) {
+          a += sm.part[w8][p][i];
+          if (i < 5) b += sm.part[w8][p][6 + i];
+        }
+        M[i] = a;
+        if (i < 5) Wm[i] = b;
       }
-      const Proj q = project(ts, mpt, c0 + p, cam);
+      const Cam cam = load_cam(sm.cam);
+      const Proj q = project(raw, BCH, p, cam);
       const float okf = q.ok ? 1.0f : 0.0f;
-      const int o = MODE == 1 ? 0 : 2;   // offset of the quadratic sums
-      const float g_ca = -0.5f * sum[o + 0];
-      const float g_cb = -sum[o + 1];
-      const float g_cc = -0.5f * sum[o + 2];
+      // slot mean about the tile centre, in pixels
+      const float mx = q.m2x - tox - 7.5f, my = q.m2y - toy - 7.5f;
+      const float s_dx = M[3] - mx * M[5];
+      const float s_dy = M[4] - my * M[5];
+      const float s_dxx = M[0] - 2.0f * mx * M[3] + mx * mx * M[5];
+      const float s_dxy = M[1] - my * M[3] - mx * M[4] + mx * my * M[5];
+      const float s_dyy = M[2] - 2.0f * my * M[4] + my * my * M[5];
+      const float g_ca = -0.5f * s_dxx;
+      const float g_cb = -s_dxy;
+      const float g_cc = -0.5f * s_dyy;
       const float a0 = g_ca, a1 = 0.5f * g_cb, a2 = g_cc;
       const float ca0 = q.ca * a0 + q.cb * a1;
       const float ca1 = q.ca * a1 + q.cb * a2;
@@ -349,7 +569,11 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
       const float g_v11 = -(cb0 * q.cb + cb1 * q.cc);
       float g_lo = 0.0f, g_ls = 0.0f;
       if (MODE != 0) {
-        g_lo = sum[I_GE] * q.sig * (1.0f - q.sig) * okf;
+        // gp = g_alpha * op * expp on every blended pair (clamped pairs
+        // carry g_alpha = 0), so sum g_alpha expp = M5 / op; op >= 1/255
+        // wherever a pair was kept
+        const float s_ge = q.op > 0.0f ? M[5] / q.op : 0.0f;
+        g_lo = s_ge * q.sig * (1.0f - q.sig) * okf;
         g_ls = 2.0f * q.s2 * (g_v00 * q.ax + g_v01 * q.bxy + g_v11 * q.cy_) *
                okf;
       }
@@ -360,14 +584,13 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
         row[2] = 0.0f;
         row[3] = g_lo;
         row[4] = g_ls;
-        row[5] = sum[I_RGB];
-        row[6] = sum[I_RGB + 1];
-        row[7] = sum[I_RGB + 2];
+        row[5] = Wm[0];
+        row[6] = Wm[1];
+        row[7] = Wm[2];
       } else {
-        const float s_dx = sum[0], s_dy = sum[1];
         const float g_m2x = (q.ca * s_dx + q.cb * s_dy) * okf;
         const float g_m2y = q.cc * s_dy + q.cb * s_dx;
-        const float g_z_cols = sum[5];
+        const float g_z_cols = Wm[3] + 2.0f * q.z * Wm[4];
         const float g_j00 = 2.0f * q.s2 * q.j00 * g_v00;
         const float g_j02 = q.s2 * (2.0f * q.j02 * g_v00 + q.j12 * g_v01);
         const float g_j11 = 2.0f * q.s2 * q.j11 * g_v11;
@@ -390,11 +613,11 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
         const float g_z = (g_zs + g_z_cols) * okf;
         if (MODE == 0) {
           const float gcam[3] = {g_x, g_y, g_z};
-          const float mw[3] = {q.wx, q.wy, q.wz};
+          const float mw3[3] = {q.wx, q.wy, q.wz};
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
 #pragma unroll
-            for (int j = 0; j < 3; ++j) red[i * 3 + j] += gcam[i] * mw[j];
+            for (int j = 0; j < 3; ++j) red[i * 3 + j] += gcam[i] * mw3[j];
             red[9 + i] += gcam[i];
           }
         } else {
@@ -404,14 +627,17 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
           col[2 * mpt] = g_z;
           col[3 * mpt] = g_lo;
           col[4 * mpt] = g_ls;
-          col[5 * mpt] = sum[I_RGB];
-          col[6 * mpt] = sum[I_RGB + 1];
-          col[7 * mpt] = sum[I_RGB + 2];
+          col[5 * mpt] = Wm[0];
+          col[6 * mpt] = Wm[1];
+          col[7 * mpt] = Wm[2];
         }
       }
     }
+    // meanwhile warps 2-3 project the next chunk's slots
+    if (more && p >= BCH && p < BCH + min(BCH, count - c0 - BCH))
+      stage_bwd(sm, sm.raw[buf ^ 1], p - BCH, tox, toy);
     written = c0 + n;
-    // also the barrier that frees the stage and the partials
+    // the barrier that also frees the partials and this chunk's raw rows
     if (__syncthreads_or(!done) == 0) break;
   }
 
@@ -425,19 +651,34 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
     for (int i = p; i < 8 * rest; i += TPX)
       base[(i / rest) * mpt + i % rest] = 0.0f;
   } else {
+    // once per tile: the slot threads' 12 pose sums, through the (now
+    // free) gp / w buffers, summed in a fixed order
+    float* pose = reinterpret_cast<float*>(sm.pw);
+    if (p < BCH) {
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const float v = warp_sum(red[i]);
-      if (lane == 0) red_s[warp][i] = v;
+      for (int i = 0; i < 12; ++i) pose[i * BCH + p] = red[i];
     }
     __syncthreads();
     if (p < 12) {
       float a = 0.0f;
-#pragma unroll
-      for (int w8 = 0; w8 < NWARP; ++w8) a += red_s[w8][p];
+      for (int k = 0; k < BCH; ++k) a += pose[p * BCH + k];
       grad[(size_t)tile * 12 + p] = a;
     }
   }
+}
+
+template <int MODE>
+int launch_bwd(const float* slots, const int* counts, const float* cp,
+               const float* out, const float* g, int n_tiles, int mpt,
+               int tiles_x, float* grad, void* stream) {
+  const int smem = (int)sizeof(BwdSmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      splat_bwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  splat_bwd_kernel<MODE><<<n_tiles, TPX, smem, (cudaStream_t)stream>>>(
+      slots, counts, cp, out, g, mpt, tiles_x, grad);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -458,26 +699,23 @@ int vtgs_splat_fwd(const float* slots, const int* counts, const float* cp,
 int vtgs_splat_bwd_pose(const float* slots, const int* counts, const float* cp,
                         const float* out, const float* g, int n_tiles, int mpt,
                         int tiles_x, float* partial, void* stream) {
-  splat_bwd_kernel<0><<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
-      slots, counts, cp, out, g, mpt, tiles_x, partial);
-  return (int)cudaGetLastError();
+  return launch_bwd<0>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
+                        partial, stream);
 }
 
 int vtgs_splat_bwd_vals_rows(const float* slots, const int* counts,
                              const float* cp, const float* out, const float* g,
                              int n_tiles, int mpt, int tiles_x, float* rows,
                              void* stream) {
-  splat_bwd_kernel<1><<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
-      slots, counts, cp, out, g, mpt, tiles_x, rows);
-  return (int)cudaGetLastError();
+  return launch_bwd<1>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
+                        rows, stream);
 }
 
 int vtgs_splat_bwd_all(const float* slots, const int* counts, const float* cp,
                        const float* out, const float* g, int n_tiles, int mpt,
                        int tiles_x, float* grad, void* stream) {
-  splat_bwd_kernel<2><<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
-      slots, counts, cp, out, g, mpt, tiles_x, grad);
-  return (int)cudaGetLastError();
+  return launch_bwd<2>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
+                        grad, stream);
 }
 
 }  // extern "C"

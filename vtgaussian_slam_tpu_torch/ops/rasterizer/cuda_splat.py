@@ -44,12 +44,20 @@ NCH = 8
 POWER_MAX = 1e-3   # the splat kernels keep power <= 1e-3 (K4 keeps <= 0)
 
 
+_CAM_CONSTS: dict = {}   # (camera, device) -> its 6 constants on the device
+
+
 def cp_vector(R9: torch.Tensor, trans: torch.Tensor, cam: Camera) -> torch.Tensor:
     """(18,) f32 [R(9) t(3) fx fy cx cy 1.3 tanfovx 1.3 tanfovy], on the
-    pose's device (no host round trip)."""
-    consts = torch.tensor(
-        [cam.fx, cam.fy, cam.cx, cam.cy, 1.3 * cam.tanfovx,
-         1.3 * cam.tanfovy], dtype=torch.float32, device=R9.device)
+    pose's device. The camera's constants are uploaded once per camera and
+    device: a host-to-device copy from pageable memory waits for the
+    stream, and the wrappers build this vector on every launch."""
+    key = (cam, R9.device)
+    consts = _CAM_CONSTS.get(key)
+    if consts is None:
+        consts = _CAM_CONSTS[key] = torch.tensor(
+            [cam.fx, cam.fy, cam.cx, cam.cy, 1.3 * cam.tanfovx,
+             1.3 * cam.tanfovy], dtype=torch.float32, device=R9.device)
     return torch.cat([R9.reshape(9).float(), trans.reshape(3).float(),
                       consts]).contiguous()
 
@@ -147,8 +155,9 @@ def splat_forward_plain(slots8, counts, cp, tiles_x, tile_ids=None):
     return torch.cat([acc, T_end[:, None], torch.zeros_like(T_end)[:, None]], 1)
 
 
-def _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids):
-    """Replay the walk and reduce the per-slot pixel sums of both modes."""
+def _backward_pairs(slots8, counts, cp, tiles_x, out, g, tile_ids):
+    """Replay the walk: (walk, d alpha, d power = d alpha * alpha) per
+    (tile, pixel, slot), zero where the pair was not blended."""
     w = _walk(slots8, counts, cp, tiles_x, tile_ids)
     GG = (g * out).sum(1)                                       # (T, P)
     Gc = torch.einsum("tcp,tcm->tpm", g[:, :6], w["cols"])
@@ -158,7 +167,12 @@ def _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids):
     ga = torch.where(w["include"] & w["keep"] & ~w["clamped"],
                      w["T_in"] * Gc - (GG[..., None] - Hk) * inv_om,
                      torch.zeros_like(Gc))
-    gp = ga * w["alpha"]
+    return w, ga, ga * w["alpha"]
+
+
+def _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids):
+    """Replay the walk and reduce the per-slot pixel sums of both modes."""
+    w, ga, gp = _backward_pairs(slots8, counts, cp, tiles_x, out, g, tile_ids)
     dx, dy = w["dx"], w["dy"]
     z = w["q"]["z"]
     sums = dict(
@@ -169,6 +183,86 @@ def _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids):
         g_zc=(w["weight"] * (g[:, 3][..., None]
                              + 2.0 * z[:, None, :] * g[:, 5][..., None])).sum(1))
     return w["q"], sums
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest value with 10 mantissa bits, ties away from zero
+    (`cvt.rna.tf32.f32`), as an f32 tensor."""
+    b = x.float().contiguous().view(torch.int32)
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (b & ~0x7FFFFFFF)).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x = hi + lo as the kernels split it: hi rounded to TF32, lo = x - hi
+    (exact in f32), of which the mma reads the top 19 bits (truncated)."""
+    hi = tf32_round(x)
+    lo = (x - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def pixel_moment_basis(device=None) -> torch.Tensor:
+    """(256, 6) PHI = [cx^2, cx cy, cy^2, cx, cy, 1] with cx, cy the pixel's
+    coordinates about the tile centre (lx - 7.5, ly - 7.5)."""
+    lin = torch.arange(TPX, device=device)
+    cx = (lin % TILE).float() - 7.5
+    cy = (lin // TILE).float() - 7.5
+    return torch.stack([cx * cx, cx * cy, cy * cy, cx, cy,
+                        torch.ones_like(cx)], 1)
+
+
+def backward_sums_tf32(slots8, counts, cp, tiles_x, out, g, tile_ids=None):
+    """The backward kernels' reduction in plain PyTorch (the tests use it;
+    no engine path does): the per-slot sums of `_backward_sums` as the
+    tensor-core products Mg = GP . PHI and Mw = W . GC, on operands
+    rounded to TF32 and split a = hi + lo (GP . PHI as hi + lo, PHI being
+    exact; W . GC as hi.hi + hi.lo + lo.hi), then the epilogue that
+    rebuilds the dx / dy sums from the moments about the tile centre."""
+    w, _, gp = _backward_pairs(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    phi = pixel_moment_basis(slots8.device)
+    gc = torch.stack([g[:, 0], g[:, 1], g[:, 2], g[:, 3], g[:, 5]], -1)
+    gh, gl = _split_tf32(gp)
+    Mg = (torch.einsum("tpm,pc->tmc", gl, phi)
+          + torch.einsum("tpm,pc->tmc", gh, phi))               # (T, M, 6)
+    wh, wl = _split_tf32(w["weight"])
+    ch, cl = _split_tf32(gc)
+    Mw = (torch.einsum("tpm,tpc->tmc", wl, ch)
+          + torch.einsum("tpm,tpc->tmc", wh, cl)
+          + torch.einsum("tpm,tpc->tmc", wh, ch))               # (T, M, 5)
+    q = w["q"]
+    T = slots8.shape[0]
+    if tile_ids is None:
+        tile_ids = torch.arange(T, device=slots8.device)
+    tox = ((tile_ids % tiles_x) * TILE).float()[:, None]
+    toy = ((tile_ids // tiles_x) * TILE).float()[:, None]
+    mx = q["m2x"] - tox - 7.5
+    my = q["m2y"] - toy - 7.5
+    M = [Mg[..., i] for i in range(6)]
+    op = q["op"]
+    s_ge = torch.where(op > 0, M[5] / torch.where(op > 0, op,
+                                                  torch.ones_like(op)),
+                       torch.zeros_like(op))
+    sums = dict(
+        s_dx=M[3] - mx * M[5], s_dy=M[4] - my * M[5],
+        s_dxx=M[0] - 2.0 * mx * M[3] + mx * mx * M[5],
+        s_dxy=M[1] - my * M[3] - mx * M[4] + mx * my * M[5],
+        s_dyy=M[2] - 2.0 * my * M[4] + my * my * M[5], s_ge=s_ge,
+        g_rgb=Mw[..., 0:3].transpose(1, 2),
+        g_zc=Mw[..., 3] + 2.0 * q["z"] * Mw[..., 4])
+    return q, sums
+
+
+def moment_sums_error(slots8, counts, cp, tiles_x, out, g, tile_ids=None):
+    """Largest error of `backward_sums_tf32` against `_backward_sums`, per
+    sum and over all, each scaled by that sum's largest |value|."""
+    _, ref = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    _, got = backward_sums_tf32(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    errs = {}
+    for k, r in ref.items():
+        scale = max(float(r.abs().max()), 1e-30)
+        errs[k] = float((got[k] - r).abs().max()) / scale
+    errs["max"] = max(errs.values())
+    return errs
 
 
 def _conic_chain(q, sums):
@@ -232,9 +326,10 @@ def _mean_cam_grad(q, s):
 
 
 def splat_backward_pose_plain(slots8, counts, cp, tiles_x, out, g,
-                              tile_ids=None):
+                              tile_ids=None, sums=None):
     """Plain K2: -> (T, 12) per-tile partial [dR(9), dt(3)]."""
-    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    q, s = sums or _backward_sums(slots8, counts, cp, tiles_x, out, g,
+                                  tile_ids)
     g_cam = _mean_cam_grad(q, s)                                  # (T, 3, M)
     mw = torch.stack([q["wx"], q["wy"], q["wz"]], 1)
     dR = torch.einsum("tim,tjm->tij", g_cam, mw).reshape(-1, 9)
@@ -242,9 +337,10 @@ def splat_backward_pose_plain(slots8, counts, cp, tiles_x, out, g,
 
 
 def splat_backward_all_plain(slots8, counts, cp, tiles_x, out, g,
-                             tile_ids=None):
+                             tile_ids=None, sums=None):
     """Plain K6: -> (T, 8, mpt) rows [d mean_cam(3), d lo, d ls, d rgb]."""
-    q, s = _backward_sums(slots8, counts, cp, tiles_x, out, g, tile_ids)
+    q, s = sums or _backward_sums(slots8, counts, cp, tiles_x, out, g,
+                                  tile_ids)
     rows = splat_backward_vals_rows_plain(slots8, counts, cp, tiles_x, out, g,
                                           tile_ids, (q, s))
     return torch.cat([_mean_cam_grad(q, s), rows.transpose(1, 2)[:, 3:]],
