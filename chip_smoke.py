@@ -35,11 +35,19 @@ Phases (any failure raises and the exit code is non-zero):
      plain version's time over all tiles (in tile batches), and the
      least time the card could take for the same work (the pairs and
      slots these inputs make the kernel walk and blend, read from the
-     plain walk's masks; see FLOPS_WALKED); for K2 and K3 the (warp, slot)
-     and (warp, 16-slot sub-chunk) steps walked and the share in which
-     some lane blended, for warps of 32 consecutive pixels (what a per-slot
-     warp-shuffle reduction pays); K2, K3 and K6 launched twice must give
-     the same bits; then K2/K1 and K3/K1 of this run;
+     plain walk's masks; see FLOPS_WALKED); for K1, K2, K3 and K5 the
+     counts that explain their design, for the 8 x 4 pixel blocks the
+     kernels' warps own: the (block, slot) steps walked, those the slot's
+     box keeps, those in which some lane blends (and the same per 16-slot
+     sub-chunk for the backwards); a kept pair outside its slot's box
+     raises; every kernel launched twice must give the same bits; then
+     K5/K4, K2/K1 and K3/K1 of this run;
+  3b. the device-busy share of the loops (`[busy]` lines): ten iterations
+     each of the default tracking loop, the default mapping loop and the
+     generic tracking loop on the runs' final states, once timed by the
+     host clock alone and once under `torch.profiler`: the summed device
+     time over the unprofiled wall time, the launches per iteration and the
+     five kernels with the most device time;
   4. a `{"kernels": [...]}` line (launches: the two engine runs' sum); the
      card line; and as the last line
      `{"ok": true, "device": {...}}`.
@@ -60,6 +68,7 @@ NUM_FRAMES = 5
 GENERIC_FRAMES = 3    # frame 0 + 2 tracked frames on the generic route
 TRACK_ITERS = 80      # room0 base1_num_iters
 MAP_ITERS = 100       # room0 mapping num_iters
+BUSY_ITERS = 10       # iterations of each loop under the profiler
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 outside the tensor
 # cores; the kernels do fp32 vector math and exp.
@@ -258,51 +267,123 @@ def check_close(name, got, ref, bulk):
     return abs_err
 
 
-def splat_work(slots8, counts, cp, tiles_x):
-    """(pairs walked, pairs blended, slots walked) of the splat kernels on
-    these inputs, from the plain walk's masks; then what a per-slot
-    warp-shuffle reduction meets, per warp of 32 consecutive pixels: the
-    (warp, slot) steps some lane walks, those in which some lane blends,
-    and the same two counts for (warp, 16-slot sub-chunk) steps."""
+WORK_KEYS = ("walked", "blended", "slots", "steps", "steps_box", "steps_blend",
+             "sub_steps", "sub_box", "sub_blend", "kept_outside_box")
+
+
+def walk_counts(walked, kept, blended, box):
+    """Counts of one batch of tiles from the plain walk's (T, 256, M) masks
+    and the (T, M, 4) cull boxes: pairs walked and blended, slots walked;
+    then per 8 x 4 pixel block (one warp of the kernels): the (block, slot)
+    steps some lane walks, those the slot's box keeps, those in which some
+    lane blends; the same three per (block, 16-slot sub-chunk); and the
+    steps with a kept pair whose box misses the block (must be 0)."""
     import torch
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
-    n = [0] * 7
+    meets = cs.box_meets_blocks(box)                            # (T, 8, M)
+    wk_b = cs.block_pixels(walked).any(2)
+    bl_b = cs.block_pixels(blended).any(2)
+    kept_b = cs.block_pixels(kept & walked).any(2)
+    T, B, M = wk_b.shape
+    sub = lambda x: torch.nn.functional.pad(x, (0, -M % 16)).view(
+        T, B, -1, 16).any(3)
+    vals = (walked.sum(), blended.sum(), walked.any(1).sum(), wk_b.sum(),
+            (wk_b & meets).sum(), bl_b.sum(), sub(wk_b).sum(),
+            sub(wk_b & meets).sum(), sub(bl_b).sum(), (kept_b & ~meets).sum())
+    return [int(v) for v in vals]
+
+
+def splat_work(slots8, counts, cp, tiles_x):
+    """`walk_counts` of the splat kernels on these inputs, over all tiles."""
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    n = [0] * len(WORK_KEYS)
     for ids in batched(slots8.shape[0], 128):
         w = cs._walk(slots8[ids], counts[ids], cp, tiles_x, ids)
-        wk, bl = w["walked"], w["keep"] & w["include"]
-        T, P, M = wk.shape
-        wk_w = wk.view(T, P // 32, 32, M).any(2)                # (T, 8, M)
-        bl_w = bl.view(T, P // 32, 32, M).any(2)
-        pad = -M % 16
-        sub = lambda x: torch.nn.functional.pad(x, (0, pad)).view(
-            T, P // 32, -1, 16).any(3)
-        for i, v in enumerate((wk.sum(), bl.sum(), wk.any(1).sum(),
-                               wk_w.sum(), bl_w.sum(), sub(wk_w).sum(),
-                               sub(bl_w).sum())):
-            n[i] += int(v)
-    return tuple(n)
+        box = cs.slot_box(slots8[ids], cp, tiles_x, ids, w["q"])
+        got = walk_counts(w["walked"], w["keep"], w["keep"] & w["include"],
+                          box)
+        n = [a + b for a, b in zip(n, got)]
+    return dict(zip(WORK_KEYS, n))
 
 
 def blend_work(recs, counts, tiles_x):
-    """(pairs walked, pairs blended, records walked) of the blend kernel on
-    these inputs, from the plain walk's masks."""
+    """`walk_counts` of the blend kernels on these inputs, over all tiles."""
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
-    walked = blended = slots = 0
+    n = [0] * len(WORK_KEYS)
     for ids in batched(recs.shape[0], 128):
         w = cb._blend_walk(recs[ids], counts[ids], tiles_x, ids)
-        walked += int(w["walked"].sum())
-        blended += int(w["blended"].sum())
-        slots += int(w["walked"].any(1).sum())
-    return walked, blended, slots
+        box = cb.record_box(recs[ids], tiles_x, ids)
+        got = walk_counts(w["walked"], w["keep"], w["blended"], box)
+        n = [a + b for a, b in zip(n, got)]
+    return dict(zip(WORK_KEYS, n))
+
+
+def steps_line(name, work):
+    """The block-step counts of `walk_counts`; raises on a kept pair that
+    its slot's box would have culled."""
+    share = lambda a, b: f"{work[a]} ({work[a] / max(work[b], 1):.4f})"
+    line = (f"  {name}: (8x4 block, slot) steps walked {work['steps']}, the "
+            f"box keeps {share('steps_box', 'steps')}, some lane blends "
+            f"{share('steps_blend', 'steps')}")
+    if name != "K1":
+        line += (f"; (block, 16-slot sub-chunk) steps walked "
+                 f"{work['sub_steps']}, the boxes keep "
+                 f"{share('sub_box', 'sub_steps')}, some lane blends "
+                 f"{share('sub_blend', 'sub_steps')}")
+    print(line)
+    if work["kept_outside_box"]:
+        raise AssertionError(f"{name}: {work['kept_outside_box']} (block, "
+                             f"slot) steps keep a pair outside the slot's box")
 
 
 def bound(name, bytes_moved, work):
-    walked, blended, slots = work[:3]
-    flops = (walked * FLOPS_WALKED[name] + blended * FLOPS_BLENDED[name]
-             + slots * FLOPS_SLOT[name])
+    flops = (work["walked"] * FLOPS_WALKED[name]
+             + work["blended"] * FLOPS_BLENDED[name]
+             + work["slots"] * FLOPS_SLOT[name])
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def busy_line(tag, loop):
+    """Run `loop` (BUSY_ITERS iterations of one optimisation loop) once to
+    warm up, once timed by the host clock alone, and once under
+    torch.profiler; print the summed device time over the unprofiled wall
+    time, the device launches per iteration and the five device kernels
+    with the most time, under the profiler's names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    loop()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loop()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        loop()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        raise AssertionError(f"[busy] {tag}: the profiler saw no device time")
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    n_launch = sum(r[1] for r in rows)
+    top = "; ".join(f"{key[:60]} {ms:.3f} ms x{cnt}"
+                    for ms, cnt, key in rows[:5])
+    print(f"[busy] {tag}: {BUSY_ITERS} iterations, wall {wall_ms:.2f} ms "
+          f"({wall_ms / BUSY_ITERS:.3f} ms per iteration; under the profiler "
+          f"{prof_wall_ms:.2f} ms), device time {dev_ms:.2f} ms, busy share "
+          f"{dev_ms / wall_ms:.4f}, device launches per iteration "
+          f"{n_launch / BUSY_ITERS:.1f} | top: {top}")
 
 
 def main() -> int:
@@ -581,11 +662,10 @@ def main() -> int:
         got = sp["sub"](full, ids)
         ref_cmp = ref.transpose(1, 2) if name in ("K1", "K6") else ref
         err = check_close(name, got, ref_cmp, sp["tol"])
-        if name in ("K2", "K3", "K6"):
-            same = torch.equal(full, sp["kernel"]())
-            print(f"  {name}: a repeated launch gives the same bits: {same}")
-            if not same:
-                raise AssertionError(f"{name} is not deterministic")
+        same = torch.equal(full, sp["kernel"]())
+        print(f"  {name}: a repeated launch gives the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{name} is not deterministic")
         if name == "K2":
             k2_precision(got, ref_cmp, slots_t[ids], counts_t[ids], cp_t,
                          tiles_x, accum_t[ids], g_t[ids], ids)
@@ -598,27 +678,62 @@ def main() -> int:
                 sp["plain"](b)
         plain_ms = event_ms(plain_all, iters=1, warmup=1)
         work = sp["work"]()
-        b_ms, b_by = bound(name, sp["bytes"](work[2]), work)
+        b_ms, b_by = bound(name, sp["bytes"](work["slots"]), work)
         print(f"  {name}: {ms:.4f} ms (one wrapper call, median; 20 calls "
               f"back to back {b2b_ms:.4f} ms per call) | plain {plain_ms:.2f} "
-              f"ms | bound {b_ms:.4f} ms ({b_by}; {work[0]} pairs walked, "
-              f"{work[1]} blended, {work[2]} slots walked) | launches on the "
-              f"engine paths {launches[name]} (slice {launches1[name]}, "
-              f"generic route {launches2[name]})")
-        if name in ("K2", "K3"):
-            print(f"  {name}: (warp, slot) steps walked {work[3]}, with some "
-                  f"lane blending {work[4]} ({work[4] / max(work[3], 1):.4f}); "
-                  f"(warp, 16-slot sub-chunk) steps walked {work[5]}, with "
-                  f"some lane blending {work[6]} "
-                  f"({work[6] / max(work[5], 1):.4f})")
+              f"ms | bound {b_ms:.4f} ms ({b_by}; {work['walked']} pairs "
+              f"walked, {work['blended']} blended, {work['slots']} slots "
+              f"walked) | launches on the engine paths {launches[name]} "
+              f"(slice {launches1[name]}, generic route {launches2[name]})")
+        if name in ("K1", "K2", "K3", "K5"):
+            steps_line(name, work)
         report.append({"name": name, "route": sp["route"],
                        "source": sp["source"], "replaces": sp["replaces"],
                        "launches": launches[name], "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": None})
 
-    print(f"[ratios] same run: K2/K1 {times['K2'] / times['K1']:.3f}, "
+    print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "
+          f"K2/K1 {times['K2'] / times['K1']:.3f}, "
           f"K3/K1 {times['K3'] / times['K1']:.3f}")
+
+    # ---- phase 3b: the loops' device-busy share -------------------------
+    from vtgaussian_slam_tpu_torch.core.mapping import (KeyframeBuffer,
+                                                        MappingConfig,
+                                                        map_frame_binned)
+    from vtgaussian_slam_tpu_torch.core.tracking import (TrackingConfig,
+                                                         init_track_state,
+                                                         track_frame,
+                                                         track_frame_cached)
+    assert engine.dataset_name == "replica"    # no far-depth mask in _track
+    tr_cfg, mp_cfg = config["tracking"], config["mapping"]
+
+    def tcfg_of(eng):
+        return TrackingConfig(
+            num_iters=BUSY_ITERS, lr_quat=tr_cfg["lrs"]["cam_unnorm_rots"],
+            lr_trans=tr_cfg["lrs"]["cam_trans"], metric="loss",
+            loss_cfg=eng._loss_cfg(True))
+
+    mcfg = MappingConfig(
+        num_iters=BUSY_ITERS,
+        lrs=tuple(sorted((k, float(v)) for k, v in mp_cfg["lrs"].items()
+                         if k not in ("cam_unnorm_rots", "cam_trans"))),
+        loss_cfg=engine._loss_cfg(False), use_global=False)
+    kf = KeyframeBuffer(colors=engine.ring_colors, depths=engine.ring_depths,
+                        count=len(engine.map_store.ring_of_slot))
+    q2 = engine2.traj.quats[t2].clone()
+    tr2 = engine2.traj.trans[t2].clone()
+    busy_line("default track", lambda: track_frame_cached(
+        tc, init_track_state(quat, trans, tr_cfg["sil_thres"]), frame, None,
+        cam, tcfg_of(engine)))
+    busy_line("default map", lambda: map_frame_binned(
+        sec.params, kf, engine.map_store.slots,
+        list(engine.map_store.ring_of_slot), cam, mcfg,
+        generator=engine.map_generator))
+    busy_line("generic track", lambda: track_frame(
+        sec2.params, sec2.active_mask(),
+        init_track_state(q2, tr2, tr_cfg["sil_thres"]), frame2, None, cam,
+        tcfg_of(engine2)))
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -150,11 +150,17 @@ def _hand_case(kind):
     "ragged_counts": counts 0 and others that are no multiple of the
     kernels' 16-slot sub-chunk; "early_stop": the centre tile starts with 8
     wide opaque splats, so all its pixels stop within the first
-    sub-chunk."""
+    sub-chunk; "no_box": the centre tile's slots are too faint (opacity
+    below 1/255) or too far away for any cull box to touch it."""
     slots = random_tile_slots(range(9), TILES_X, 128, seed=12)
     counts = np.full(9, 128, np.int32)
     if kind == "ragged_counts":
         counts[:] = [0, 1, 15, 17, 33, 63, 65, 100, 128]
+    elif kind == "no_box":
+        slots[4, 3, 0::2] = -7.0
+        slots[4, :, 1::2] = slots_at(np.full(64, 24.0) + 200.0, np.full(64, 24.0),
+                                     slots[4, 2, 1::2], 2.0, 2.0,
+                                     (0.5, 0.5, 0.5))
     else:
         slots[4, :, :8] = slots_at(np.full(8, 24.0), np.full(8, 24.0), 1.0,
                                    48.0, 8.0, (0.5, 0.5, 0.5))
@@ -202,6 +208,35 @@ def test_splat_backwards_edge_cases_repeat_bitwise(card, kind):
             assert_close_scaled(got[..., col], ref[..., col], 1e-3,
                                 f"{fn.__name__} col {col}")
         np.testing.assert_array_equal(np_(got)[np_(~walked)], 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["track_cache", "ragged_counts", "early_stop",
+                                  "no_box"])
+def test_splat_forward_edge_cases_repeat_bitwise(card, kind):
+    """K1 against its plain version on a tile with count 0, counts off the
+    kernel's chunks, a tile whose pixels all stop within its first 16
+    slots and a tile no cull box touches; a second launch on the same
+    inputs gives the same bits."""
+    cam = torch_cam()
+    slots, counts, R9, t, _ = (_case("cpu", seed=0) if kind == "track_cache"
+                               else _hand_case(kind))
+    ref = CS.splat_forward(slots, R9, t, counts, cam, TILES_X)
+    d = [x.to(card) for x in (slots, R9, t, counts)]
+    got = CS.splat_forward(*d, cam, TILES_X)
+    assert torch.equal(got, CS.splat_forward(*d, cam, TILES_X))
+    np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-4, atol=1e-5)
+    if kind == "ragged_counts":
+        np.testing.assert_array_equal(np_(got)[0, :6], 0.0)
+        np.testing.assert_array_equal(np_(got)[0, 6], 1.0)
+    if kind == "early_stop":
+        np.testing.assert_array_equal(np_(got)[4, 6], 0.0)      # all stopped
+    if kind == "no_box":
+        cp = CS.cp_vector(R9, t, cam)
+        meets = CS.box_meets_blocks(CS.slot_box(slots, cp, TILES_X))
+        assert not bool(meets[4].any()) and bool(meets[3].any())
+        np.testing.assert_array_equal(np_(got)[4, :6], 0.0)
+        np.testing.assert_array_equal(np_(got)[4, 6], 1.0)
 
 
 @pytest.mark.cuda
@@ -261,6 +296,72 @@ def test_blend_backward_kernel_matches_plain(card, kind):
                             torch.arange(recs.shape[0]))["walked"].any(1)
     np.testing.assert_array_equal(np_(got)[np_(~walked)], 0.0)
     assert bool((~walked).any())
+
+
+def _hand_records(kind):
+    """The 9 test tiles, 128 random records each. "ragged_counts": counts 0
+    and others off K5's 16-record sub-chunk and 32-record chunk;
+    "early_stop": the centre tile starts with 8 wide, nearly opaque
+    records, so all its pixels stop within the first sub-chunk; "no_box":
+    the centre tile's records are too faint (opacity below 1/255) or too
+    far away for any cull box to touch it."""
+    recs, counts = _records(seed=21)
+    recs, counts = recs.clone(), torch.full_like(counts, 128)
+    rng = np.random.default_rng(22)
+    recs[:, 0] = torch.as_tensor(rng.uniform(-2, 18, (9, 128)).astype(
+        np.float32)) + 16.0 * (torch.arange(9) % TILES_X)[:, None]
+    recs[:, 1] = torch.as_tensor(rng.uniform(-2, 18, (9, 128)).astype(
+        np.float32)) + 16.0 * (torch.arange(9) // TILES_X)[:, None]
+    recs[:, 2] = recs[:, 4] = 0.2
+    recs[:, 3] = 0.05
+    recs[:, 5] = torch.as_tensor(rng.uniform(0.1, 0.9, (9, 128)).astype(
+        np.float32))
+    recs[:, 6:14] = torch.as_tensor(rng.uniform(0, 1, (9, 8, 128)).astype(
+        np.float32))
+    if kind == "ragged_counts":
+        counts[:] = torch.tensor([0, 1, 15, 17, 33, 63, 65, 100, 128])
+    elif kind == "early_stop":
+        recs[4, 2:5, :8] = torch.tensor([1e-3, 0.0, 1e-3])[:, None]
+        recs[4, 5, :8] = 0.95
+    else:
+        recs[4, 5, 0::2] = 0.0039
+        recs[4, 0, 1::2] += 300.0
+    return recs, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 8])
+@pytest.mark.parametrize("kind", ["ragged_counts", "early_stop", "no_box"])
+def test_blend_backward_edge_cases_repeat_bitwise(card, kind, C):
+    """K5 with 3 and 8 channels against its plain version on a tile with
+    count 0, counts off the kernel's chunks, a tile whose pixels all stop
+    within its first sub-chunk and a tile no cull box touches; a second
+    launch gives the same bits; records no pixel walked, or every warp's
+    box skipped, get exact zeros in all 16 columns."""
+    recs, counts = _hand_records(kind)
+    out = CB.blend_forward(recs, counts, TILES_X, C)
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    ref = CB.blend_backward(recs, counts, out, g, TILES_X)
+    d = [x.to(card) for x in (recs, counts, out, g)]
+    got = CB.blend_backward(*d, TILES_X)
+    assert torch.equal(got, CB.blend_backward(*d, TILES_X))
+    assert got.shape == ref.shape == (9, 128, 16)
+    for col in range(6 + C):
+        assert_close_scaled(got[..., col], ref[..., col], 1e-3, f"col {col}")
+    np.testing.assert_array_equal(np_(got)[..., 6 + C:], 0.0)
+    w = CB._blend_walk(recs, counts, TILES_X, torch.arange(9))
+    walked = w["walked"].any(1)
+    np.testing.assert_array_equal(np_(got)[np_(~walked)], 0.0)
+    meets = CS.box_meets_blocks(CB.record_box(recs, TILES_X)).any(1)
+    np.testing.assert_array_equal(np_(got)[np_(~meets)], 0.0)
+    if kind == "ragged_counts":
+        np.testing.assert_array_equal(np_(got)[0], 0.0)
+    if kind == "early_stop":
+        assert bool(walked[4, :16].any()) and not bool(walked[4, 16:].any())
+    if kind == "no_box":
+        assert not bool(meets[4].any()) and bool(walked[4].all())
+        np.testing.assert_array_equal(np_(got)[4], 0.0)
 
 
 @pytest.mark.cuda

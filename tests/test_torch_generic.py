@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from torch_port_util import (N_TILES, POSE_Q, POSE_T, TILES_X,
-                             assert_close_scaled, jax_cam, jax_params, np_,
-                             scene_np, torch_cam, torch_params)
+                             assert_close_scaled, jax_cam, jax_params,
+                             k5_records, np_, scene_np, torch_cam,
+                             torch_params)
 from vtgaussian_slam_tpu.core import losses as JL
 from vtgaussian_slam_tpu.core.track_cache import build_track_cache
 from vtgaussian_slam_tpu.ops import geometry as jgeo
@@ -38,33 +39,6 @@ from vtgaussian_slam_tpu_torch.ops.rasterizer.projection import \
 MPT = 128
 C = 8
 BK = {"span_cap": 3, "max_pairs_per_tile": 256, "chunk": 128}
-
-
-def k5_records(seed, count_hi, op=(0.1, 0.99), conic=(0.05, 0.5)):
-    """Random per-tile records (T, 16, mpt) + counts. With op[1] > 0.99
-    every 8th record is fully opaque and centred on a pixel, so that pixel
-    clamps (op * exp(power) > 0.99); small conics (wide splats) and high
-    opacity end every pixel of a tile before the tile's count."""
-    rng = np.random.default_rng(seed)
-    recs = np.zeros((N_TILES, MPT, 16), np.float32)
-    counts = rng.integers(5, count_hi + 1, N_TILES).astype(np.int32)
-    counts[0] = count_hi
-    for t in range(N_TILES):
-        ty, tx = divmod(t, TILES_X)
-        n = counts[t]
-        recs[t, :n, 0] = tx * 16 + rng.uniform(-2, 18, n)
-        recs[t, :n, 1] = ty * 16 + rng.uniform(-2, 18, n)
-        a = rng.uniform(*conic, n)
-        cc = rng.uniform(*conic, n)
-        recs[t, :n, 2] = a
-        recs[t, :n, 3] = rng.uniform(-0.1, 0.1, n) * np.sqrt(a * cc)
-        recs[t, :n, 4] = cc
-        recs[t, :n, 5] = rng.uniform(*op, n)
-        recs[t, :n, 6:6 + C] = rng.uniform(0, 1, (n, C))
-        if op[1] > 0.99:
-            recs[t, :n:8, 5] = 1.0
-            recs[t, :n:8, :2] = np.round(recs[t, :n:8, :2])
-    return np.ascontiguousarray(recs.transpose(0, 2, 1)), counts
 
 
 @pytest.mark.parametrize("case", [

@@ -92,6 +92,34 @@ def random_tile_slots(tile_ids, tiles_x, mpt, seed, sigma=(1.0, 6.0), **cam):
     return out
 
 
+def k5_records(seed, count_hi, op=(0.1, 0.99), conic=(0.05, 0.5), mpt=128,
+               n_colors=8):
+    """Random per-tile records (T, 16, mpt) + counts. With op[1] > 0.99
+    every 8th record is fully opaque and centred on a pixel, so that pixel
+    clamps (op * exp(power) > 0.99); small conics (wide splats) and high
+    opacity end every pixel of a tile before the tile's count."""
+    rng = np.random.default_rng(seed)
+    recs = np.zeros((N_TILES, mpt, 16), np.float32)
+    counts = rng.integers(5, count_hi + 1, N_TILES).astype(np.int32)
+    counts[0] = count_hi
+    for t in range(N_TILES):
+        ty, tx = divmod(t, TILES_X)
+        n = counts[t]
+        recs[t, :n, 0] = tx * 16 + rng.uniform(-2, 18, n)
+        recs[t, :n, 1] = ty * 16 + rng.uniform(-2, 18, n)
+        a = rng.uniform(*conic, n)
+        cc = rng.uniform(*conic, n)
+        recs[t, :n, 2] = a
+        recs[t, :n, 3] = rng.uniform(-0.1, 0.1, n) * np.sqrt(a * cc)
+        recs[t, :n, 4] = cc
+        recs[t, :n, 5] = rng.uniform(*op, n)
+        recs[t, :n, 6:6 + n_colors] = rng.uniform(0, 1, (n, n_colors))
+        if op[1] > 0.99:
+            recs[t, :n:8, 5] = 1.0
+            recs[t, :n:8, :2] = np.round(recs[t, :n:8, :2])
+    return np.ascontiguousarray(recs.transpose(0, 2, 1)), counts
+
+
 POSE_Q = np.array([0.999, 0.01, -0.02, 0.005], np.float32)
 POSE_T = np.array([0.02, -0.01, 0.03], np.float32)
 

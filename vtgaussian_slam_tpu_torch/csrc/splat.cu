@@ -19,13 +19,39 @@
 //         d rgb(3)], the JAX layout; the wrapper contracts dR, dt and
 //         rotates d mean_cam to world
 //
-// Design: one CTA per 16x16 tile, one thread per pixel (256 threads). Slot
-// records are staged through shared memory CH at a time; the per-slot
-// projection (world->camera, isotropic EWA, sigmoid) runs once per slot,
-// cooperatively, one slot per thread. Each pixel then walks the chunk front
-// to back: it skips pairs with power > 1e-3 or alpha < 1/255, and stops at
-// the first slot whose transmittance after blending would fall below 1e-4
-// (that slot is not blended). The CTA leaves when all 256 pixels stopped.
+// Design: one CTA per 16x16 tile, one thread per pixel (256 threads); warp
+// w owns the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1)). Raw slot rows
+// arrive by cp.async a chunk ahead of the walk. Each slot is projected once
+// per tile (world->camera, isotropic EWA, sigmoid; `stage_slot`, shared by
+// all four kernels) into shared memory, together with a box bounding the
+// pixels where alpha >= 1/255 can hold, and a warp evaluates only the slots
+// whose box meets its block. A pixel evaluates 4 live slots at a time (alpha
+// is independent of the walk's state), then blends them front to back with
+// selects rather than branches. It skips pairs with power > 1e-3 or alpha <
+// 1/255, and stops at the first slot whose transmittance after blending
+// would fall below 1e-4 (that slot is not blended). The CTA leaves when all
+// 256 pixels stopped.
+//
+// K1, what bounds it on the H100: neither the bytes (each slot row is read
+// once per tile, ~53 MB at room0 shapes, ~16 us at 3.35 TB/s) nor the
+// operations (~0.11 ms at the fp32 peak, chip_smoke.py's bound) but the
+// issue slots and latency of the per-pair walk: only ~9% of the
+// (pixel, slot) pairs of a saturated 512-slot tile blend, and a walk that
+// evaluates every pair is one dependent chain per slot with two branches.
+// What the design does about it: the box cull removes the pairs (a lane
+// tests one box per 32 slots, a ballot and a popcount compact the chunk's
+// live slots, in slot order, into a per-warp byte list, so the walk reads 4
+// indices with one load and only a chunk's last group is partial); the
+// grouped select blend leaves T alone on the chain from one blend to the
+// next; chunks of FCH = 256 slots with the raw rows and the projected stage
+// both double buffered, so a chunk costs one block barrier, the next
+// chunk's copies are in flight while this one is walked, and every warp
+// projects FCH / 8 slots of the next chunk before it walks (no warp waits
+// for another's projection). The forward holds only T and 6 sums per pixel:
+// 64 registers and 47 KB of static shared memory, so 4 CTAs share an SM
+// (measured: smaller chunks or 5 CTAs at 48 registers are slower, PERF.md).
+// Blends are in slot order per pixel, no atomics: a repeated launch gives
+// the same bits.
 //
 // The backwards (K2, K3, K6: one template, MODE 0 / 1 / 2) replay the same
 // walk front to back and use the suffix identity
@@ -36,8 +62,7 @@
 // (pallas_splat.py: _phi_local, the M = phi^T g_power and g_eff @ weight
 // contractions, which the TPU ran on its MXU) on the tensor cores, instead
 // of a ballot and a 5-level warp-shuffle tree per value for every (warp,
-// slot) some lane blended. Warp w owns the 8 x 4 pixel block at
-// (8 (w & 1), 4 (w >> 1)). Slots come 64 per chunk, 16 per sub-chunk. Each
+// slot) some lane blended. Slots come 64 per chunk, 16 per sub-chunk. Each
 // pixel writes two values per slot of the sub-chunk, gp = g_alpha * alpha
 // and the blend weight w (0 where the pair was not blended), into its
 // warp's [slot][pixel] buffer; the warp then takes, over its 32 pixels,
@@ -57,37 +82,24 @@
 // threads through shared memory to a fixed-order sum. No warp shuffle and
 // no float atomics: results are deterministic.
 //
-// The walk around the products: each slot carries a box bounding the
-// pixels where alpha >= 1/255 can hold, and a warp evaluates only the slots
-// whose box meets its block. A pixel evaluates 4 live slots at a time
-// (alpha, g.c and 1 / (1 - alpha) are independent of the walk's state),
-// then blends them front to back with selects rather than branches, so the
-// chain from one blend to the next is T and H alone. Raw slot records are
-// staged by cp.async, the next chunk's copies in flight while the current
-// chunk is walked; warps 2-3 project the next chunk while warps 0-1 run the
-// current one's epilogue.
+// The backward walk is the forward's (box cull per 16-slot sub-chunk, 4
+// slots at a time; g.c and 1 / (1 - alpha) are also independent of the
+// walk's state, so its chain is T and H alone); warps 2-3 project the next
+// chunk while warps 0-1 run the current one's epilogue.
 //
-// What bounds it on the H100: neither the bytes (each slot row is read once
-// per tile, ~53 MB at room0 shapes, ~16 us at 3.35 TB/s) nor the operations
-// (~0.125 ms at the fp32 peak, chip_smoke.py's bound) but the instruction
-// count and latency of the per-pair walk, which alone takes about as long
-// as K1; the products come on top (PERF.md). ptxas (sm_90a, CUDA
-// 12.8): 80 registers, so 3 CTAs share an SM (spills: 40 B in K2, none in
-// K3, 8 B in K6), and 74,488 B of dynamic shared memory per CTA, set with
-// cudaFuncSetAttribute in launch_bwd.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds the backwards on the H100: like K1 neither the bytes nor the
+// operations (~0.125 ms at the fp32 peak) but the issue slots and
+// latency of the per-pair walk; the products come on top (PERF.md). ptxas
+// (sm_90a, CUDA 12.8): 80 registers, so 3 CTAs share an SM, and ~74 KB of
+// dynamic shared memory per CTA, set with cudaFuncSetAttribute in
+// launch_bwd.
+#include "walk.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int TPX = TILE * TILE;
+using namespace vtgs;
+
 constexpr int NCH = 8;
-constexpr int CH = 128;           // slots staged per chunk
-constexpr int NWARP = TPX / 32;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_TERM = 1e-4f;
 constexpr float POWER_MAX = 1e-3f;  // pallas_splat keeps power <= 1e-3
 constexpr float NEAR_CULL = 0.2f;
 constexpr float DILATION = 0.3f;
@@ -162,45 +174,62 @@ __device__ __forceinline__ Proj project(const float* __restrict__ ts, int mpt,
   return p;
 }
 
-// Shared-memory staging of one chunk: the per-slot values the walk reads.
-struct Stage {
-  float mx[CH], my[CH], ca[CH], cb[CH], cc[CH], op[CH], r[CH], g[CH], b[CH],
-      z[CH];
+// One chunk of N slots as the walks read it: the projected values and the
+// box bounding the pixels where one of the slot's pairs can be kept.
+template <int N>
+struct SlotStage {
+  float4 s0[N];    // mx my ca cb   (mean in tile-local pixel coordinates)
+  float2 s1[N];    // cc op
+  float4 s2[N];    // r g b z
+  float4 box[N];   // xlo xhi ylo yhi
 };
 
-__device__ __forceinline__ void stage_slot(Stage& s, const float* __restrict__ ts,
-                                           int mpt, int c0, int k, const Cam& cam,
-                                           float tox, float toy) {
-  const Proj q = project(ts, mpt, c0 + k, cam);
-  s.mx[k] = q.m2x - tox;   // slot mean in tile-local pixel coordinates
-  s.my[k] = q.m2y - toy;
-  s.ca[k] = q.ca;
-  s.cb[k] = q.cb;
-  s.cc[k] = q.cc;
-  s.op[k] = q.op;
-  s.r[k] = ts[5 * mpt + c0 + k];
-  s.g[k] = ts[6 * mpt + c0 + k];
-  s.b[k] = ts[7 * mpt + c0 + k];
-  s.z[k] = q.z;
+// Project slot k of the raw chunk (8, N) into the walk's stage. The box:
+// Q <= r2 (walk.cuh, box_radius2) is an ellipse whose x / y half-extents
+// are sqrt(r2 v00) / sqrt(r2 v11) for the 2D covariance v; op < 1/255 (and
+// every culled slot, whose op is 0) gets an empty box.
+template <int N>
+__device__ __forceinline__ void stage_slot(SlotStage<N>& st, const float* cam18,
+                                           const float* raw, int k, float tox,
+                                           float toy) {
+  const Cam cam = load_cam(cam18);
+  const Proj q = project(raw, N, k, cam);
+  const float mx = q.m2x - tox, my = q.m2y - toy;
+  float4 box = make_float4(1e30f, -1e30f, 1e30f, -1e30f);
+  if (q.op >= ALPHA_MIN) {
+    const float r2 = box_radius2(q.op);
+    const float hx = sqrtf(r2 * (q.s2 * q.ax + DILATION));
+    const float hy = sqrtf(r2 * (q.s2 * q.cy_ + DILATION));
+    box = make_float4(mx - hx, mx + hx, my - hy, my + hy);
+  }
+  st.s0[k] = make_float4(mx, my, q.ca, q.cb);
+  st.s1[k] = make_float2(q.cc, q.op);
+  st.s2[k] = make_float4(raw[5 * N + k], raw[6 * N + k], raw[7 * N + k], q.z);
+  st.box[k] = box;
 }
 
-// ---- the backwards' shared memory and tensor-core helpers ----------------
-constexpr unsigned FULL = 0xffffffffu;
+// ---- K1 --------------------------------------------------------------------
+constexpr int FCH = 256;             // slots per forward chunk
+constexpr int FPW = FCH / NWARP;     // slots of the next chunk a warp projects
+static_assert(FCH % 32 == 0 && FPW <= 32, "a lane votes on one box per word");
+
+static_assert(FCH <= 256 && NG == 4, "a group's 4 slot indices are 4 bytes");
+
+struct FwdSmem {
+  SlotStage<FCH> st[2];              // projected chunks, double buffered
+  float raw[2][8 * FCH];             // raw slot rows, double buffered
+  unsigned live[NWARP][FCH / 4 + 1];  // per warp: its live slots of the chunk
+  float cam[18];
+};
+
+// ---- the backwards' shared memory ------------------------------------------
 constexpr int BCH = 64;   // slots staged per chunk in the backwards
-constexpr int SC = 16;    // slots per sub-chunk: the mma's M
-constexpr int PST = 260;  // row stride of the PHI / GC tables: 4 mod 32, so a
-                          // B-fragment load (rows gq, columns tq) hits 32 banks
 constexpr int NP = 11;    // per-slot partials Mg[0:6], Mw[0:5] (odd stride:
                           // the epilogue's reads are conflict-free)
-constexpr int NG = 4;     // slots a pixel evaluates together (ILP)
 static_assert(BCH % SC == 0 && BCH <= TPX, "a chunk holds whole sub-chunks");
 
-struct BwdSmem {
+struct BwdSmem : SlotStage<BCH> {
   float raw[2][8 * BCH];            // raw slot rows, double buffered
-  float4 s0[BCH];                   // projected: mx my ca cb
-  float2 s1[BCH];                   //            cc op
-  float4 s2[BCH];                   //            r g b z
-  float4 box[BCH];                  // xlo xhi ylo yhi: where a pair can be kept
   float2 pw[NWARP][SC * 32];        // per warp: (gp, w), [slot][pixel ^ sw]
   float part[NWARP][BCH][NP];       // per warp and slot: Mg, Mw partials
   float phi[6][PST];                // PHI^T: [cx^2 cx*cy cy^2 cx cy 1] per pixel
@@ -208,133 +237,113 @@ struct BwdSmem {
   float cam[18];
 };
 
-// column swizzle of row r of a (gp, w) buffer: the walk's row stores and
-// the A-fragment loads (rows gq, gq + 8; columns 8 ks + tq, + 4) are both
-// free of bank conflicts
-__device__ __forceinline__ int pw_at(int r, int c) {
-  return r * 32 + (c ^ ((4 * r) & 31));
-}
-
-// Project slot k of the chunk into the walk's stage. box bounds the pixels
-// where one of its pairs can be kept: alpha >= 1/255 needs
-// op exp(-Q/2) >= 1/255, i.e. the conic form Q <= r2 = 2 ln(255 op), an
-// ellipse whose x / y half-extents are sqrt(r2 v00) / sqrt(r2 v11) for the
-// 2D covariance v. r2 is padded by 0.1% and 1e-4, far above the rounding of
-// the walk's own test, so every pair the box drops is one the cuts drop
-// (op < 1/255: an empty box).
-__device__ __forceinline__ void stage_bwd(BwdSmem& sm, const float* raw, int k,
-                                          float tox, float toy) {
-  const Cam cam = load_cam(sm.cam);
-  const Proj q = project(raw, BCH, k, cam);
-  const float mx = q.m2x - tox, my = q.m2y - toy;
-  float4 box = make_float4(1e30f, -1e30f, 1e30f, -1e30f);
-  if (q.op >= ALPHA_MIN) {
-    const float r2 = 2.0f * logf(255.0f * q.op) * 1.001f + 1e-4f;
-    const float hx = sqrtf(r2 * (q.s2 * q.ax + DILATION));
-    const float hy = sqrtf(r2 * (q.s2 * q.cy_ + DILATION));
-    box = make_float4(mx - hx, mx + hx, my - hy, my + hy);
-  }
-  sm.s0[k] = make_float4(mx, my, q.ca, q.cb);
-  sm.s1[k] = make_float2(q.cc, q.op);
-  sm.s2[k] = make_float4(raw[5 * BCH + k], raw[6 * BCH + k], raw[7 * BCH + k],
-                         q.z);
-  sm.box[k] = box;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// copy slot rows [c0, c0 + BCH) of the tile into dst (8, BCH); slots at or
-// past count are zero-filled
-__device__ __forceinline__ void copy_raw(float* dst, const float* ts, int mpt,
-                                         int c0, int count, int p) {
-  for (int i = p; i < 8 * BCH; i += TPX) {
-    const int row = i / BCH, col = i % BCH;
-    const bool ok = c0 + col < count;
-    cp_async4(dst + i, ts + (size_t)row * mpt + (ok ? c0 + col : 0), ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// a = hi + lo for the TF32 products: hi is a rounded to TF32 (to nearest,
-// ties away from zero: the bits cvt.rna.tf32.f32 gives a finite a), lo =
-// a - hi exactly; the mma reads the top 19 bits of lo, which leaves at
-// most 2^-22 |a|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16x8, f32) += a (16x8, TF32, row-major) . b (8x8, TF32, col-major)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(TPX)
+__global__ void __launch_bounds__(TPX, 4)
 splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts,
                  const float* __restrict__ cp, int mpt, int tiles_x,
                  float* __restrict__ out) {
-  __shared__ Stage s;
+  __shared__ __align__(16) FwdSmem sm;
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
+  const int warp = p >> 5, lane = p & 31;
   const int count = counts[tile];
-  const Cam cam = load_cam(cp);
   const float* ts = slots + (size_t)tile * 8 * mpt;
   const float tox = (float)((tile % tiles_x) * TILE);
   const float toy = (float)((tile / tiles_x) * TILE);
-  const float lx = (float)(p % TILE), ly = (float)(p / TILE);
+  const WarpBlock wb(warp, lane);
+  // lanes 0 .. FPW - 1 of each warp project slot sl of a chunk
+  const bool proj = lane < FPW;
+  const int sl = warp * FPW + lane;
+  unsigned char* lst = reinterpret_cast<unsigned char*>(sm.live[warp]);
+
+  if (p < 18) sm.cam[p] = cp[p];
+  if (count > 0) {
+    copy_rows<FCH>(sm.raw[0], ts, 8, mpt, 0, count, p);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  if (proj && sl < count) stage_slot(sm.st[0], sm.cam, sm.raw[0], sl, tox, toy);
+  if (FCH < count) {
+    copy_rows<FCH>(sm.raw[1], ts, 8, mpt, FCH, count, p);
+    cp_async_wait_all();
+  }
+  __syncthreads();
 
   float T = 1.0f;
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool done = false;
-  for (int c0 = 0; c0 < count; c0 += CH) {
-    const int n = min(CH, count - c0);
-    if (p < n) stage_slot(s, ts, mpt, c0, p, cam, tox, toy);
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < n; ++k) {
-        const float dx = lx - s.mx[k], dy = ly - s.my[k];
-        const float power =
-            -0.5f * (s.ca[k] * dx * dx + s.cc[k] * dy * dy) - s.cb[k] * dx * dy;
-        const float alpha = fminf(ALPHA_MAX, s.op[k] * expf(power));
-        if (!(power <= POWER_MAX && alpha >= ALPHA_MIN)) continue;
-        const float Ta = T * (1.0f - alpha);
-        if (Ta < T_TERM) {
-          done = true;
-          break;
+  int buf = 0;
+  // at the top of each turn: chunk c0 is projected in st[buf], the raw rows
+  // of chunk c0 + FCH have arrived in raw[buf ^ 1], and raw[buf] is free
+  for (int c0 = 0; c0 < count; c0 += FCH, buf ^= 1) {
+    const int n = min(FCH, count - c0);
+    if (c0 + 2 * FCH < count)
+      copy_rows<FCH>(sm.raw[buf], ts, 8, mpt, c0 + 2 * FCH, count, p);
+    if (proj && c0 + FCH + sl < count)
+      stage_slot(sm.st[buf ^ 1], sm.cam, sm.raw[buf ^ 1], sl, tox, toy);
+    const SlotStage<FCH>& st = sm.st[buf];
+
+    if (!__all_sync(FULL, done)) {
+      // the chunk's slots whose box meets this warp's block, compacted in
+      // slot order into the warp's list: a lane tests one box per 32 slots
+      int L = 0;
+      for (int k0 = 0; k0 < n; k0 += 32) {
+        const int k = k0 + lane;
+        const bool in = k < n && wb.meets(st.box[k]);
+        const unsigned m = __ballot_sync(FULL, in);
+        if (in) lst[L + __popc(m & ((1u << lane) - 1u))] = (unsigned char)k;
+        L += __popc(m);
+      }
+      if (lane < NG) lst[L + lane] = 0;   // pads the last group
+      __syncwarp();
+      for (int i0 = 0; i0 < L; i0 += NG) {
+        if (__all_sync(FULL, done)) break;
+        // evaluate NG live slots independently, then blend them front to
+        // back with selects, not branches: the chain from one blend to the
+        // next is T alone
+        const unsigned ks = *reinterpret_cast<const unsigned*>(lst + i0);
+        float al[NG];
+        bool kp[NG];
+        float4 cv[NG];
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const int k = (ks >> (8 * j)) & 0xffu;
+          const float4 s0 = st.s0[k];
+          const float2 s1 = st.s1[k];
+          cv[j] = st.s2[k];
+          const float dx = wb.lx - s0.x, dy = wb.ly - s0.y;
+          const float power = -0.5f * (s0.z * dx * dx + s1.x * dy * dy) -
+                              s0.w * dx * dy;
+          al[j] = fminf(ALPHA_MAX, s1.y * expf(power));
+          kp[j] = i0 + j < L && power <= POWER_MAX && al[j] >= ALPHA_MIN;
         }
-        const float w = alpha * T;
-        const float z = s.z[k];
-        acc[0] += w * s.r[k];
-        acc[1] += w * s.g[k];
-        acc[2] += w * s.b[k];
-        acc[3] += w * z;
-        acc[4] += w;
-        acc[5] += w * z * z;
-        T = Ta;
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const bool keep = kp[j] && !done;
+          const float Ta = T * (1.0f - al[j]);
+          const bool stop = keep && Ta < T_TERM;
+          const bool blend = keep && !stop;
+          done = done || stop;
+          const float w = blend ? al[j] * T : 0.0f;
+          const float z = cv[j].w;
+          acc[0] += w * cv[j].x;
+          acc[1] += w * cv[j].y;
+          acc[2] += w * cv[j].z;
+          acc[3] += w * z;
+          acc[4] += w;
+          acc[5] += w * z * z;
+          T = blend ? Ta : T;
+        }
       }
     }
-    // also the barrier that frees the stage for the next chunk
+    cp_async_wait_all();   // the rows of chunk c0 + 2 FCH, for the next turn
+    // also the barrier that publishes st[buf ^ 1] and frees st[buf]
     if (__syncthreads_or(!done) == 0) break;
   }
   float* o = out + (size_t)tile * NCH * TPX;
 #pragma unroll
-  for (int ch = 0; ch < 6; ++ch) o[ch * TPX + p] = acc[ch];
-  o[6 * TPX + p] = done ? 0.0f : T;   // final transmittance telemetry
-  o[7 * TPX + p] = 0.0f;
+  for (int ch = 0; ch < 6; ++ch) o[ch * TPX + wb.pix] = acc[ch];
+  o[6 * TPX + wb.pix] = done ? 0.0f : T;   // final transmittance telemetry
+  o[7 * TPX + wb.pix] = 0.0f;
 }
 
 // MODE 0: "pose" (K2), MODE 1: "vals_rows" (K3), MODE 2: "all" (K6): K2's
@@ -387,7 +396,7 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   }
   if (p < 18) sm.cam[p] = cp[p];
   if (count > 0) {
-    copy_raw(sm.raw[0], ts, mpt, 0, count, p);
+    copy_rows<BCH>(sm.raw[0], ts, 8, mpt, 0, count, p);
     cp_async_wait_all();
   }
   __syncthreads();
@@ -404,12 +413,13 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   int buf = 0;
   // the first chunk's stage; each later one is staged by warps 2-3 while
   // warps 0-1 finish the chunk before it
-  if (p < min(BCH, count)) stage_bwd(sm, sm.raw[0], p, tox, toy);
+  if (p < min(BCH, count)) stage_slot<BCH>(sm, sm.cam, sm.raw[0], p, tox, toy);
   __syncthreads();
   for (int c0 = 0; c0 < count; c0 += BCH, buf ^= 1) {
     const int n = min(BCH, count - c0);
     const bool more = c0 + BCH < count;
-    if (more) copy_raw(sm.raw[buf ^ 1], ts, mpt, c0 + BCH, count, p);
+    if (more)
+      copy_rows<BCH>(sm.raw[buf ^ 1], ts, 8, mpt, c0 + BCH, count, p);
     const float* raw = sm.raw[buf];
 
     for (int k0 = 0; k0 < n; k0 += SC) {
@@ -635,7 +645,7 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
     }
     // meanwhile warps 2-3 project the next chunk's slots
     if (more && p >= BCH && p < BCH + min(BCH, count - c0 - BCH))
-      stage_bwd(sm, sm.raw[buf ^ 1], p - BCH, tox, toy);
+      stage_slot<BCH>(sm, sm.cam, sm.raw[buf ^ 1], p - BCH, tox, toy);
     written = c0 + n;
     // the barrier that also frees the partials and this chunk's raw rows
     if (__syncthreads_or(!done) == 0) break;

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles on its own into `build/lib<name>_<hash>.so`
 (a plain C interface, no PyTorch headers, so a build takes seconds). The
-hash covers the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. `build_all` starts one nvcc per source at
+hash covers the source, the shared headers `csrc/*.cuh` and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded. `build_all` starts one nvcc per source at
 once. Nothing is built when a module is imported: the first launch on a
 CUDA tensor builds what is missing.
 
@@ -56,6 +56,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}_{h}.so"
 

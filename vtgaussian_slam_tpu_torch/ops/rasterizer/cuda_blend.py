@@ -18,6 +18,11 @@ K5 returns (n_tiles, mpt, 16) record-row gradients [d mean2d, d conic,
 d opacity, d colors, 0...] (row-major: the JAX kernel writes the transposed
 (n_tiles, 16, mpt)), zero on every record no pixel walked. Pixels use
 global coordinates and keep power <= 0 (K1 keeps <= 1e-3).
+
+Beside the plain versions stand mirrors of what only K5 does on the card,
+for the CPU tests alone: `record_box` (the per-record cull box) and
+`backward_sums_tf32` (the split tensor-core products and the moment
+epilogue).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 
 from . import _build
 from .blend import ALPHA_MAX, ALPHA_MIN, T_TERMINATE
+from .cuda_splat import (_split_tf32, box_radius2, cull_boxes,
+                         pixel_moment_basis)
 
 RECW = 16
 TILE = 16
@@ -57,8 +64,9 @@ def _blend_walk(recs, counts, tiles_x, tile_ids):
     T_in = torch.cat([torch.ones_like(T_after[..., :1]), T_after[..., :-1]], -1)
     include = T_after >= T_TERMINATE
     weight = torch.where(include, alpha * T_in, torch.zeros_like(alpha))
-    return dict(walked=in_count & (T_in >= T_TERMINATE), blended=keep & include,
-                weight=weight, dx=dx, dy=dy, expp=expp, alpha=alpha,
+    return dict(walked=in_count & (T_in >= T_TERMINATE), keep=keep,
+                blended=keep & include, weight=weight, dx=dx, dy=dy,
+                expp=expp, alpha=alpha,
                 clamped=araw > ALPHA_MAX, T_in=T_in)
 
 
@@ -99,32 +107,109 @@ def blend_forward(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
 blend_forward.launches = 0
 
 
-def blend_backward_plain(recs: torch.Tensor, counts: torch.Tensor,
-                         out: torch.Tensor, g: torch.Tensor, tiles_x: int,
-                         tile_ids=None) -> torch.Tensor:
-    """Plain K5: the walk's suffix-identity gradients -> (T, mpt, 16)."""
-    T, _, M = recs.shape
-    C = out.shape[-1]
+def _tile_origin(tile_ids, tiles_x):
+    return (((tile_ids % tiles_x) * TILE).float()[:, None],
+            ((tile_ids // tiles_x) * TILE).float()[:, None])
+
+
+def record_box(recs, tiles_x, tile_ids=None):
+    """K5's per-record cull box (`stage_record` of csrc/blend.cu), (T, mpt,
+    4) [xlo, xhi, ylo, yhi] in tile-local pixel coordinates, from the
+    record alone: for the conic (a, b, c) with det = ac - b^2 > 0 the
+    extent of Q <= box_radius2(op) is sqrt(r2 c / det) by sqrt(r2 a / det)
+    about the mean. det is lowered by a bound on its own rounding, which
+    only widens the box; det <= 0 or an extent that is not finite gives
+    the whole tile (no cull), opacity < 1/255 an empty box."""
     if tile_ids is None:
-        tile_ids = torch.arange(T, device=recs.device)
+        tile_ids = torch.arange(recs.shape[0], device=recs.device)
+    tox, toy = _tile_origin(tile_ids, tiles_x)
+    mx, my = recs[:, 0] - tox, recs[:, 1] - toy
+    ca, cb, cc, op = recs[:, 2], recs[:, 3], recs[:, 4], recs[:, 5]
+    has_box = op >= ALPHA_MIN
+    r2 = box_radius2(torch.where(has_box, op, torch.ones_like(op)))
+    ac, bb = ca * cc, cb * cb
+    det = (ac - bb) - 1e-6 * (ac.abs() + bb)
+    hx, hy = torch.sqrt(r2 * cc / det), torch.sqrt(r2 * ca / det)
+    whole = ~(det > 0) | ~(hx <= 3e38) | ~(hy <= 3e38)
+    return cull_boxes(mx, my, hx, hy, has_box, whole)
+
+
+def _backward_pairs(recs, counts, out, g, tiles_x, tile_ids):
+    """Replay the walk: (walk, d alpha, d power = d alpha * alpha) per
+    (tile, pixel, record), zero where the pair was not blended."""
     w = _blend_walk(recs, counts, tiles_x, tile_ids)
-    cols = recs[:, 6:6 + C]                                     # (T, C, M)
+    cols = recs[:, 6:6 + out.shape[-1]]                         # (T, C, M)
     GG = (g * out).sum(-1)[..., None]                           # (T, P, 1)
     Gc = torch.einsum("tpc,tcm->tpm", g, cols)
     Hk = torch.cumsum(w["weight"] * Gc, dim=-1)
     inv_om = 1.0 / torch.clamp(1.0 - w["alpha"], min=1e-6)
     ga = torch.where(w["blended"] & ~w["clamped"],
                      w["T_in"] * Gc - (GG - Hk) * inv_om, torch.zeros_like(Gc))
-    gp = ga * w["alpha"]
+    return w, ga, ga * w["alpha"]
+
+
+def _backward_sums(recs, counts, out, g, tiles_x, tile_ids):
+    """The per-record sums over the tile's pixels, taken directly."""
+    w, ga, gp = _backward_pairs(recs, counts, out, g, tiles_x, tile_ids)
     dx, dy = w["dx"], w["dy"]
-    s_dx, s_dy = (gp * dx).sum(1), (gp * dy).sum(1)              # (T, M)
+    return dict(s_dx=(gp * dx).sum(1), s_dy=(gp * dy).sum(1),
+                s_dxx=(gp * dx * dx).sum(1), s_dxy=(gp * dx * dy).sum(1),
+                s_dyy=(gp * dy * dy).sum(1), s_ge=(ga * w["expp"]).sum(1),
+                g_cols=torch.einsum("tpm,tpc->tmc", w["weight"], g))
+
+
+def backward_sums_tf32(recs, counts, out, g, tiles_x, tile_ids=None):
+    """K5's reduction in plain PyTorch (the tests use it; no engine path
+    does): the sums of `_backward_sums` as the tensor-core products
+    Mg = GP . PHI over the pixel moments about the tile centre and
+    Mw = W . GC over the cotangent columns, on operands rounded to TF32 and
+    split a = hi + lo (GP . PHI as hi + lo, PHI being exact; W . GC as
+    hi.hi + hi.lo + lo.hi), then the epilogue that rebuilds the dx / dy
+    sums from the moments about the record mean and sum galpha exp(power)
+    = M5 / opacity."""
+    if tile_ids is None:
+        tile_ids = torch.arange(recs.shape[0], device=recs.device)
+    w, _, gp = _backward_pairs(recs, counts, out, g, tiles_x, tile_ids)
+    phi = pixel_moment_basis(recs.device)
+    gh, gl = _split_tf32(gp)
+    Mg = (torch.einsum("tpm,pc->tmc", gl, phi)
+          + torch.einsum("tpm,pc->tmc", gh, phi))               # (T, M, 6)
+    wh, wl = _split_tf32(w["weight"])
+    ch, cl = _split_tf32(g)
+    Mw = (torch.einsum("tpm,tpc->tmc", wl, ch)
+          + torch.einsum("tpm,tpc->tmc", wh, cl)
+          + torch.einsum("tpm,tpc->tmc", wh, ch))               # (T, M, C)
+    tox, toy = _tile_origin(tile_ids, tiles_x)
+    mx = recs[:, 0] - tox - 7.5
+    my = recs[:, 1] - toy - 7.5
+    M = [Mg[..., i] for i in range(6)]
+    op = recs[:, 5]
+    return dict(
+        s_dx=M[3] - mx * M[5], s_dy=M[4] - my * M[5],
+        s_dxx=M[0] - 2.0 * mx * M[3] + mx * mx * M[5],
+        s_dxy=M[1] - my * M[3] - mx * M[4] + mx * my * M[5],
+        s_dyy=M[2] - 2.0 * my * M[4] + my * my * M[5],
+        s_ge=torch.where(op > 0, M[5] / torch.where(op > 0, op,
+                                                    torch.ones_like(op)),
+                         torch.zeros_like(op)),
+        g_cols=Mw)
+
+
+def blend_backward_plain(recs: torch.Tensor, counts: torch.Tensor,
+                         out: torch.Tensor, g: torch.Tensor, tiles_x: int,
+                         tile_ids=None, sums=None) -> torch.Tensor:
+    """Plain K5: the walk's suffix-identity gradients -> (T, mpt, 16);
+    `sums` replaces the direct per-record sums (the TF32 mirror's)."""
+    T, _, M = recs.shape
+    C = out.shape[-1]
+    if tile_ids is None:
+        tile_ids = torch.arange(T, device=recs.device)
+    s = sums or _backward_sums(recs, counts, out, g, tiles_x, tile_ids)
     ca, cb, cc = recs[:, 2], recs[:, 3], recs[:, 4]
-    rows = torch.stack([ca * s_dx + cb * s_dy, cc * s_dy + cb * s_dx,
-                        -0.5 * (gp * dx * dx).sum(1), -(gp * dx * dy).sum(1),
-                        -0.5 * (gp * dy * dy).sum(1), (ga * w["expp"]).sum(1)],
-                       -1)
-    g_cols = torch.einsum("tpm,tpc->tmc", w["weight"], g)
-    return torch.cat([rows, g_cols, rows.new_zeros((T, M, RECW - 6 - C))],
+    rows = torch.stack([ca * s["s_dx"] + cb * s["s_dy"],
+                        cc * s["s_dy"] + cb * s["s_dx"], -0.5 * s["s_dxx"],
+                        -s["s_dxy"], -0.5 * s["s_dyy"], s["s_ge"]], -1)
+    return torch.cat([rows, s["g_cols"], rows.new_zeros((T, M, RECW - 6 - C))],
                      -1).contiguous()
 
 

@@ -21,7 +21,10 @@ wrapper launches its kernel for CUDA tensors, counts the launch in its
 `launches` attribute, and runs the plain PyTorch version beside it only
 for tensors on the CPU. The plain versions are vectorised over (tiles,
 pixels, slots) with the kernels' masks and termination rule; the CPU tests
-and `chip_smoke.py` hold the kernels against them.
+and `chip_smoke.py` hold the kernels against them. Beside them stand
+mirrors of what only the kernels do, for the CPU tests alone: `slot_box`
+(the per-slot cull box), `splat_forward_grouped` (K1's box cull and grouped
+select blends) and `backward_sums_tf32` (the backwards' split products).
 
 Layouts: slots8 (T, 8, mpt) rows [wx wy wz logit_op log_scale r g b];
 accum (T, 8, 256) channels (r, g, b, z, 1, z^2, T_end, 0). Channel 6 is
@@ -40,6 +43,7 @@ from .projection import COV2D_DILATION, NEAR_CULL
 
 TILE = 16
 TPX = TILE * TILE
+NWARP = TPX // 32
 NCH = 8
 POWER_MAX = 1e-3   # the splat kernels keep power <= 1e-3 (K4 keeps <= 0)
 
@@ -140,7 +144,8 @@ def _walk(slots8, counts, cp, tiles_x, tile_ids):
     cols = torch.stack([slots8[:, 5], slots8[:, 6], slots8[:, 7], q["z"],
                         torch.ones_like(q["z"]), q["z"] * q["z"]], 1)
     # walked: pairs the kernels evaluate (slot live, pixel still open)
-    return dict(q=q, dx=dx, dy=dy, expp=expp, alpha=alpha, clamped=clamped,
+    return dict(q=q, dx=dx, dy=dy, power=power, expp=expp, alpha=alpha,
+                clamped=clamped,
                 keep=keep, T_in=T_in, T_after=T_after, include=include,
                 weight=weight, cols=cols,
                 walked=in_count & (T_in >= T_TERMINATE))
@@ -152,6 +157,104 @@ def splat_forward_plain(slots8, counts, cp, tiles_x, tile_ids=None):
     acc = torch.einsum("tpm,tcm->tcp", w["weight"], w["cols"])
     T_last = w["T_after"][..., -1]
     T_end = torch.where(T_last < T_TERMINATE, torch.zeros_like(T_last), T_last)
+    return torch.cat([acc, T_end[:, None], torch.zeros_like(T_end)[:, None]], 1)
+
+
+
+def box_radius2(op: torch.Tensor) -> torch.Tensor:
+    """The kernels' `box_radius2`: a pair is kept only where alpha =
+    op exp(-Q/2) >= 1/255, i.e. where Q <= 2 ln(255 op); padded by 0.1% and
+    1e-4, far above the rounding of the walks' own alpha test."""
+    return 2.0 * torch.log(255.0 * op) * 1.001 + 1e-4
+
+
+EMPTY_BOX = (1e30, -1e30, 1e30, -1e30)
+WHOLE_BOX = (-1e30, 1e30, -1e30, 1e30)
+
+
+def cull_boxes(mx, my, hx, hy, has_box, whole=None):
+    """(..., 4) boxes [xlo, xhi, ylo, yhi]: empty where not `has_box`, the
+    whole plane where `whole`."""
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], -1)
+    if whole is not None:
+        box = torch.where(whole[..., None], box.new_tensor(WHOLE_BOX), box)
+    return torch.where(has_box[..., None], box, box.new_tensor(EMPTY_BOX))
+
+
+def slot_box(slots8, cp, tiles_x, tile_ids=None, q=None):
+    """The splat kernels' per-slot cull box (`stage_slot` of csrc/splat.cu),
+    (T, mpt, 4) [xlo, xhi, ylo, yhi] in tile-local pixel coordinates: the
+    extent of the ellipse Q <= box_radius2(op), sqrt(r2 v00) by sqrt(r2 v11)
+    for the 2D covariance v, about the slot mean; empty (lo > hi) for
+    op < 1/255, which covers every culled slot (op 0)."""
+    q = q or _project(slots8, cp)
+    T = slots8.shape[0]
+    if tile_ids is None:
+        tile_ids = torch.arange(T, device=slots8.device)
+    mx = q["m2x"] - ((tile_ids % tiles_x) * TILE).float()[:, None]
+    my = q["m2y"] - ((tile_ids // tiles_x) * TILE).float()[:, None]
+    has_box = q["op"] >= ALPHA_MIN
+    r2 = box_radius2(torch.where(has_box, q["op"], torch.ones_like(q["op"])))
+    hx = torch.sqrt(r2 * (q["s2"] * q["ax"] + COV2D_DILATION))
+    hy = torch.sqrt(r2 * (q["s2"] * q["cy_"] + COV2D_DILATION))
+    return cull_boxes(mx, my, hx, hy, has_box)
+
+
+def block_pixels(x: torch.Tensor) -> torch.Tensor:
+    """(T, 256, ...) per-pixel values -> (T, 8, 32, ...) by the kernels'
+    warps: warp w owns the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1))."""
+    T, rest = x.shape[0], x.shape[2:]
+    x = x.reshape(T, 4, 4, 2, 8, *rest)            # (by, y, bx, x)
+    return x.transpose(2, 3).reshape(T, NWARP, 32, *rest)
+
+
+def box_meets_blocks(box: torch.Tensor) -> torch.Tensor:
+    """(T, M, 4) tile-local boxes -> (T, 8, M): can a pixel of warp w's 8 x 4
+    block lie in the box (the kernels' `WarpBlock::meets`)?"""
+    w = torch.arange(NWARP, device=box.device)
+    x0 = (8 * (w & 1)).float()[None, :, None]
+    y0 = (4 * (w >> 1)).float()[None, :, None]
+    b = box[:, None]                                # (T, 1, M, 4)
+    return ((b[..., 0] <= x0 + 7.0) & (b[..., 1] >= x0)
+            & (b[..., 2] <= y0 + 3.0) & (b[..., 3] >= y0))
+
+
+def splat_forward_grouped(slots8, counts, cp, tiles_x, tile_ids=None, ng=4):
+    """K1's walk in plain PyTorch (the tests use it; no engine path does):
+    a warp's pixels evaluate only the slots whose box meets their 8 x 4
+    block, `ng` slots at a time (alpha does not depend on the walk's
+    state), and blend them front to back with selects; a pixel stops at
+    the first slot whose transmittance after blending would fall below
+    1e-4. Returns (T, 8, 256) like `splat_forward_plain`."""
+    T, _, M = slots8.shape
+    dev = slots8.device
+    w = _walk(slots8, counts, cp, tiles_x, tile_ids)
+    q = w["q"]
+    meets = box_meets_blocks(slot_box(slots8, cp, tiles_x, tile_ids, q))
+    lin = torch.arange(TPX, device=dev)
+    live = meets[:, (lin // TILE // 4) * 2 + lin % TILE // 8]   # (T, P, M)
+    alpha = torch.clamp(q["op"][:, None, :] * w["expp"], max=ALPHA_MAX)
+    in_count = (torch.arange(M, device=dev)[None, :]
+                < counts.to(dev)[:, None])[:, None, :]
+    kp = live & in_count & (w["power"] <= POWER_MAX) & (alpha >= ALPHA_MIN)
+    cols = w["cols"]                                            # (T, 6, M)
+    Tr = torch.ones((T, TPX), device=dev)
+    done = torch.zeros((T, TPX), dtype=torch.bool, device=dev)
+    acc = torch.zeros((T, 6, TPX), device=dev)
+    zero = torch.zeros((), device=dev)
+    for k0 in range(0, M, ng):
+        al_g, kp_g = alpha[..., k0:k0 + ng], kp[..., k0:k0 + ng]
+        for j in range(al_g.shape[-1]):
+            al = al_g[..., j]
+            keep = kp_g[..., j] & ~done
+            Ta = Tr * (1.0 - al)
+            stop = keep & (Ta < T_TERMINATE)
+            blend = keep & ~stop
+            done = done | stop
+            wgt = torch.where(blend, al * Tr, zero)
+            acc = acc + wgt[:, None, :] * cols[:, :, k0 + j, None]
+            Tr = torch.where(blend, Ta, Tr)
+    T_end = torch.where(done, zero, Tr)
     return torch.cat([acc, T_end[:, None], torch.zeros_like(T_end)[:, None]], 1)
 
 
