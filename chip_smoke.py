@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of VTGaussian-SLAM on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-blend DIR ...]
 
 Phases (any failure raises and the exit code is non-zero):
   1. the card's name and power limit, torch / CUDA versions, and the build
@@ -25,7 +25,9 @@ Phases (any failure raises and the exit code is non-zero):
      K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
      the densify render records for K4, the generic route's records and its
      mapping-loss cotangent for K5), on 128 tiles (the 64 fullest + 64
-     random), with the tolerance stated; K6, which no engine path launches,
+     random), with the tolerance stated; K4 also on the generic route's
+     records, the input of all its launches but densify's, with that
+     input's own time, bound and step counts; K6, which no engine path launches,
      also runs through `splat_blend(grad_mode="all")` under autograd, held
      against the plain rows and against K2's dR, dt;
      for K2 where its disagreement comes from (kernel and plain f32 each
@@ -35,13 +37,16 @@ Phases (any failure raises and the exit code is non-zero):
      plain version's time over all tiles (in tile batches), and the
      least time the card could take for the same work (the pairs and
      slots these inputs make the kernel walk and blend, read from the
-     plain walk's masks; see FLOPS_WALKED); for K1, K2, K3 and K5 the
+     plain walk's masks; see FLOPS_WALKED); for K1 to K5 the
      counts that explain their design, for the 8 x 4 pixel blocks the
      kernels' warps own: the (block, slot) steps walked, those the slot's
      box keeps, those in which some lane blends (and the same per 16-slot
      sub-chunk for the backwards); a kept pair outside its slot's box
      raises; every kernel launched twice must give the same bits; then
-     K5/K4, K2/K1 and K3/K1 of this run;
+     K5/K4, K2/K1 and K3/K1 of this run; with `--compare-blend DIR`, K4 of
+     the `blend.cu` in DIR (another version of the source, its `walk.cuh`
+     beside it) on both of K4's inputs: whether the two outputs are equal
+     to the bit, the largest difference, and both times;
   3b. the device-busy share of the loops (`[busy]` lines): ten iterations
      each of the default tracking loop, the default mapping loop and the
      generic tracking loop on the runs' final states, once timed by the
@@ -318,14 +323,15 @@ def blend_work(recs, counts, tiles_x):
     return dict(zip(WORK_KEYS, n))
 
 
-def steps_line(name, work):
-    """The block-step counts of `walk_counts`; raises on a kept pair that
-    its slot's box would have culled."""
+def steps_line(name, work, sub_chunks=True):
+    """The block-step counts of `walk_counts` (`sub_chunks`: also per
+    16-slot sub-chunk, the backwards' unit); raises on a kept pair that its
+    slot's box would have culled."""
     share = lambda a, b: f"{work[a]} ({work[a] / max(work[b], 1):.4f})"
     line = (f"  {name}: (8x4 block, slot) steps walked {work['steps']}, the "
             f"box keeps {share('steps_box', 'steps')}, some lane blends "
             f"{share('steps_blend', 'steps')}")
-    if name != "K1":
+    if sub_chunks:
         line += (f"; (block, 16-slot sub-chunk) steps walked "
                  f"{work['sub_steps']}, the boxes keep "
                  f"{share('sub_box', 'sub_steps')}, some lane blends "
@@ -334,6 +340,39 @@ def steps_line(name, work):
     if work["kept_outside_box"]:
         raise AssertionError(f"{name}: {work['kept_outside_box']} (block, "
                              f"slot) steps keep a pair outside the slot's box")
+
+
+def other_blend_forward(src_dir):
+    """K4 as `src_dir`/blend.cu has it (another version of the source),
+    built beside the repository's own library: (recs, counts, tiles_x, C)
+    -> (T, 256, C)."""
+    import ctypes
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import _build
+    tag = "".join(c if c.isalnum() else "_" for c in src_dir)
+    lib_path = _build.BUILD / f"libblend_other_{tag}_{os.getpid()}.so"
+    log = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+         os.path.join(src_dir, "blend.cu")], check=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True).stdout.splitlines()
+    for i, line in enumerate(log):      # ptxas: the forward kernel's report
+        if "Compiling" in line and "blend_fwd_kernel" in line:
+            print(f"  [{src_dir}] "
+                  + " | ".join(x.strip() for x in log[i + 2:i + 4]))
+    fn = ctypes.CDLL(str(lib_path)).vtgs_blend_fwd
+    fn.argtypes = list(_build.SIGNATURES["blend"]["vtgs_blend_fwd"])
+    fn.restype = ctypes.c_int
+
+    def run(recs, counts, tiles_x, n_channels):
+        out = torch.empty((recs.shape[0], 256, n_channels),
+                          dtype=torch.float32, device=recs.device)
+        err = fn(recs.data_ptr(), counts.data_ptr(), recs.shape[0],
+                 recs.shape[2], tiles_x, n_channels, out.data_ptr(),
+                 _build.stream_of(recs))
+        if err:
+            raise RuntimeError(f"{src_dir}: vtgs_blend_fwd CUDA error {err}")
+        return out
+    return run
 
 
 def bound(name, bytes_moved, work):
@@ -387,6 +426,14 @@ def busy_line(tag, loop):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare-blend", metavar="DIR", action="append",
+                    default=[],
+                    help="a directory with another version of blend.cu and "
+                         "walk.cuh: hold K4 against that version's, bit for "
+                         "bit, and time both (may be given more than once)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -573,7 +620,12 @@ def main() -> int:
     check_close("K6 dR, dt vs K2", torch.cat([Rv.grad, tv.grad])[:, None],
                 pose2[:, None], 1e-3)
 
-    work_t = splat_work(slots_t, counts_t, cp_t, tiles_x)   # K1 and K2
+    work_t = splat_work(slots_t, counts_t, cp_t, tiles_x)   # K1, K2 and K6
+    work_5 = blend_work(recs5, counts5, tiles_x)    # K5, and K4's other input
+    # records no pixel walks are not read: count the walked ones
+    k4_bytes = lambda r: lambda s: (s * (6 + BLEND_CHANNELS) * 4
+                                    + r.shape[0] * 4
+                                    + r.shape[0] * 256 * BLEND_CHANNELS * 4)
     report = []
     specs = {
         "K1": dict(
@@ -619,10 +671,16 @@ def main() -> int:
             plain=lambda ids: cb.blend_forward_plain(
                 recs[ids], counts4[ids], tiles_x, BLEND_CHANNELS, ids),
             T=recs.shape[0], sub=lambda o, ids: o[ids], tol=3e-4,
-            # records no pixel walks are not read: count the walked ones
-            bytes=lambda s: (s * (6 + BLEND_CHANNELS) * 4 + recs.shape[0] * 4
-                             + recs.shape[0] * 256 * BLEND_CHANNELS * 4),
-            work=lambda: blend_work(recs, counts4, tiles_x)),
+            bytes=k4_bytes(recs),
+            work=lambda: blend_work(recs, counts4, tiles_x),
+            # its other input: 462 of its 466 launches see such records
+            also=dict(
+                tag="generic-route records", counts=counts5,
+                kernel=lambda: cb.blend_forward(recs5, counts5, tiles_x,
+                                                BLEND_CHANNELS),
+                plain=lambda ids: cb.blend_forward_plain(
+                    recs5[ids], counts5[ids], tiles_x, BLEND_CHANNELS, ids),
+                bytes=k4_bytes(recs5), work=lambda: work_5)),
         "K5": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:274",
@@ -636,7 +694,7 @@ def main() -> int:
                              + recs5.shape[0] * 4
                              + 2 * recs5.shape[0] * 256 * BLEND_CHANNELS * 4
                              + recs5.shape[0] * recs5.shape[2] * 16 * 4),
-            work=lambda: blend_work(recs5, counts5, tiles_x)),
+            work=lambda: work_5),
         "K6": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -685,17 +743,57 @@ def main() -> int:
               f"walked, {work['blended']} blended, {work['slots']} slots "
               f"walked) | launches on the engine paths {launches[name]} "
               f"(slice {launches1[name]}, generic route {launches2[name]})")
-        if name in ("K1", "K2", "K3", "K5"):
-            steps_line(name, work)
-        report.append({"name": name, "route": sp["route"],
-                       "source": sp["source"], "replaces": sp["replaces"],
-                       "launches": launches[name], "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": None})
+        if name != "K6":    # K6 walks K2's inputs
+            steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
+        row = {"name": name, "route": sp["route"],
+               "source": sp["source"], "replaces": sp["replaces"],
+               "launches": launches[name], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        also = sp.get("also")
+        if also:
+            print(f"[{name}] on the {also['tag']}, vs plain on 128 tiles")
+            full = also["kernel"]()
+            ids = pick_tiles(also["counts"])
+            err2 = check_close(name, full[ids], also["plain"](ids), sp["tol"])
+            same = torch.equal(full, also["kernel"]())
+            print(f"  {name}: a repeated launch gives the same bits: {same}")
+            if not same:
+                raise AssertionError(f"{name} is not deterministic")
+            ms2 = event_ms(also["kernel"])
+            b2b2 = event_ms(also["kernel"], per=20)
+            work2 = also["work"]()
+            b2_ms, b2_by = bound(name, also["bytes"](work2["slots"]), work2)
+            print(f"  {name}: {ms2:.4f} ms (one wrapper call, median; 20 "
+                  f"calls back to back {b2b2:.4f} ms per call) | bound "
+                  f"{b2_ms:.4f} ms ({b2_by}; {work2['walked']} pairs walked, "
+                  f"{work2['blended']} blended, {work2['slots']} slots "
+                  f"walked)")
+            steps_line(name, work2, sub_chunks=False)
+            row["other_input"] = {"input": also["tag"], "max_abs_err": err2,
+                                  "ms": ms2, "bound_ms": b2_ms,
+                                  "bound_by": b2_by}
+        report.append(row)
 
     print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "
           f"K2/K1 {times['K2'] / times['K1']:.3f}, "
           f"K3/K1 {times['K3'] / times['K1']:.3f}")
+
+    for src_dir in args.compare_blend:
+        other = other_blend_forward(src_dir)
+        for tag, r, c in (("densify records", recs, counts4),
+                          ("generic-route records", recs5, counts5)):
+            mine = cb.blend_forward(r, c, tiles_x, BLEND_CHANNELS)
+            theirs = other(r, c, tiles_x, BLEND_CHANNELS)
+            run_other = lambda: other(r, c, tiles_x, BLEND_CHANNELS)
+            run_mine = lambda: cb.blend_forward(r, c, tiles_x, BLEND_CHANNELS)
+            print(f"[K4 vs {src_dir}] {tag}: equal to the bit: "
+                  f"{torch.equal(mine, theirs)}; max abs difference "
+                  f"{(mine - theirs).abs().max().item():.3e}; one call "
+                  f"{event_ms(run_mine):.4f} ms against "
+                  f"{event_ms(run_other):.4f} ms, 20 back to back "
+                  f"{event_ms(run_mine, per=20):.4f} against "
+                  f"{event_ms(run_other, per=20):.4f} ms per call")
 
     # ---- phase 3b: the loops' device-busy share -------------------------
     from vtgaussian_slam_tpu_torch.core.mapping import (KeyframeBuffer,

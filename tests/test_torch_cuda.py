@@ -301,32 +301,82 @@ def test_blend_backward_kernel_matches_plain(card, kind):
 def _hand_records(kind):
     """The 9 test tiles, 128 random records each. "ragged_counts": counts 0
     and others off K5's 16-record sub-chunk and 32-record chunk;
-    "early_stop": the centre tile starts with 8 wide, nearly opaque
-    records, so all its pixels stop within the first sub-chunk; "no_box":
-    the centre tile's records are too faint (opacity below 1/255) or too
-    far away for any cull box to touch it."""
-    recs, counts = _records(seed=21)
-    recs, counts = recs.clone(), torch.full_like(counts, 128)
+    "ragged_chunks": 640 faint records per tile (no pixel stops) and
+    counts 0 and others either side of K4's 256-record chunks, so its ring
+    of stages goes round; "early_stop": the centre tile starts with 8 wide,
+    nearly opaque records, so all its pixels stop within the first
+    sub-chunk; "no_box": the centre tile's records are too faint (opacity
+    below 1/255) or too far away for any cull box to touch it;
+    "det_nonpositive": the centre tile's conics have det = 0 or det < 0, so
+    their box is the whole tile."""
+    mpt = 640 if kind == "ragged_chunks" else 128
+    recs, counts = _records(seed=21, mpt=mpt)
+    recs, counts = recs.clone(), torch.full_like(counts, mpt)
     rng = np.random.default_rng(22)
-    recs[:, 0] = torch.as_tensor(rng.uniform(-2, 18, (9, 128)).astype(
+    recs[:, 0] = torch.as_tensor(rng.uniform(-2, 18, (9, mpt)).astype(
         np.float32)) + 16.0 * (torch.arange(9) % TILES_X)[:, None]
-    recs[:, 1] = torch.as_tensor(rng.uniform(-2, 18, (9, 128)).astype(
+    recs[:, 1] = torch.as_tensor(rng.uniform(-2, 18, (9, mpt)).astype(
         np.float32)) + 16.0 * (torch.arange(9) // TILES_X)[:, None]
     recs[:, 2] = recs[:, 4] = 0.2
     recs[:, 3] = 0.05
-    recs[:, 5] = torch.as_tensor(rng.uniform(0.1, 0.9, (9, 128)).astype(
+    recs[:, 5] = torch.as_tensor(rng.uniform(0.1, 0.9, (9, mpt)).astype(
         np.float32))
-    recs[:, 6:14] = torch.as_tensor(rng.uniform(0, 1, (9, 8, 128)).astype(
+    recs[:, 6:14] = torch.as_tensor(rng.uniform(0, 1, (9, 8, mpt)).astype(
         np.float32))
     if kind == "ragged_counts":
         counts[:] = torch.tensor([0, 1, 15, 17, 33, 63, 65, 100, 128])
+    elif kind == "ragged_chunks":
+        recs[:, 5] *= 0.1
+        counts[:] = torch.tensor([0, 1, 255, 257, 300, 511, 513, 600, 640])
     elif kind == "early_stop":
         recs[4, 2:5, :8] = torch.tensor([1e-3, 0.0, 1e-3])[:, None]
         recs[4, 5, :8] = 0.95
+    elif kind == "det_nonpositive":
+        recs[4, 3, 0::2] = 0.2
+        recs[4, 3, 1::2] = -0.4
     else:
         recs[4, 5, 0::2] = 0.0039
         recs[4, 0, 1::2] += 300.0
     return recs, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 8])
+@pytest.mark.parametrize("kind", ["ragged_counts", "ragged_chunks",
+                                  "early_stop", "no_box", "det_nonpositive"])
+def test_blend_forward_edge_cases_repeat_bitwise(card, kind, C):
+    """K4 with 3 and 8 channels against its plain version on a tile with
+    count 0, counts off the kernel's chunks and groups, a tile whose pixels
+    all stop within its first 16 records, a tile no cull box touches and a
+    tile of det <= 0 conics (whole-tile boxes); a second launch on the same
+    inputs gives the same bits."""
+    recs, counts = _hand_records(kind)
+    ref = CB.blend_forward(recs, counts, TILES_X, C)
+    d = [x.to(card) for x in (recs, counts)]
+    n4 = CB.blend_forward.launches
+    got = CB.blend_forward(*d, TILES_X, C)
+    assert CB.blend_forward.launches == n4 + 1
+    assert torch.equal(got, CB.blend_forward(*d, TILES_X, C))
+    assert got.shape == ref.shape == (9, 256, C)
+    np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-4, atol=1e-5)
+    w = CB._blend_walk(recs, counts, TILES_X, torch.arange(9))
+    box = CB.record_box(recs, TILES_X)
+    meets = CS.box_meets_blocks(box)
+    if kind in ("ragged_counts", "ragged_chunks"):
+        np.testing.assert_array_equal(np_(got)[0], 0.0)         # count 0
+    if kind == "ragged_chunks":
+        assert bool(w["walked"][8, :, 512:].any())    # the third chunk is walked
+    if kind == "early_stop":
+        walked = w["walked"].any(1)
+        assert bool(walked[4, :16].any()) and not bool(walked[4, 16:].any())
+    if kind == "no_box":
+        assert not bool(meets[4].any()) and bool(meets[3].any())
+        np.testing.assert_array_equal(np_(got)[4], 0.0)
+    if kind == "det_nonpositive":
+        det = recs[4, 2] * recs[4, 4] - recs[4, 3] ** 2
+        assert bool((det <= 0).all()) and bool((det == 0).any())
+        assert bool((box[4] == torch.tensor(CS.WHOLE_BOX)).all())
+        assert bool(w["keep"][4].any())
 
 
 @pytest.mark.cuda

@@ -17,15 +17,47 @@
 //          64-byte row. Records no pixel walked are zero.
 //
 // Both kernels: one CTA per 16x16 tile, one thread per pixel (256 threads),
-// records staged through shared memory a chunk at a time. Pixels use GLOBAL
+// warp w on the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1)), records staged
+// through shared memory a chunk at a time by cp.async. Pixels use GLOBAL
 // coordinates and keep power <= 0 (the splat kernels keep <= 1e-3). A pixel
 // stops at the first record whose transmittance after blending would fall
 // below 1e-4 (not blended); the CTA leaves when all 256 pixels stopped.
+// Every record carries a box bounding the pixels where alpha >= 1/255 can
+// hold (`record_box`, from the conic alone), and a warp evaluates only the
+// records whose box meets its block.
 //
-// K4 is the simple design: every pixel evaluates every staged record, one
-// block barrier per 128-record chunk. Its bound is fp32 math and one exp per
-// (pixel, record) pair walked; the record bytes (n_tiles * 16 * mpt * 4,
-// ~106 MB at room0 shapes, read once) take ~32 us at 3.35 TB/s.
+// K4, what bounds it on the H100: neither the bytes (the record rows, read
+// once per tile, ~92 MB at room0 shapes, and 26 MB of output: ~35 us at 3.35
+// TB/s) nor the operations (~0.11 ms at the fp32 peak, chip_smoke.py's
+// bound) but the instruction slots and latency of the per-pair walk: under a
+// tenth of the (pixel, record) pairs of a saturated 512-record tile blend,
+// and a walk that evaluates every pair is one dependent chain per record
+// with two branches, fed by 14 scalar shared-memory loads. What the design
+// does about it (K1's, splat.cu, carried to record space; the list build is
+// walk.cuh's `live_list`):
+//  - the box cull removes the pairs: per chunk a lane tests one box per 32
+//    records, a ballot and a popcount compact the warp's live records, in
+//    record order, into a byte list padded to a whole group of 4;
+//  - a pixel evaluates 4 live records at a time (alpha, the keep test and
+//    the colour loads are independent of the walk's state) and blends them
+//    front to back with selects, so the chain from one blend to the next is
+//    T alone;
+//  - records need no projection, so cp.async writes each 4-byte value
+//    straight to its record-major place ([mx my a b] [c op col0 col1]
+//    [col2 .. col5] [col6 col7]: a pair costs 4 vector loads, all lanes of
+//    a warp on one address). Chunks of CH = 256 records go round a ring of
+//    3 stages: while chunk i is walked, chunk i + 1 has arrived and every
+//    thread takes the box of one of its records, and chunk i + 2 is in
+//    flight; a chunk costs one block barrier. 53,280 B of dynamic shared
+//    memory per CTA (set in the entry point) leave room for 4 CTAs per SM;
+//  - the per-pair arithmetic is the simple walk's (dx = pixel - mean in
+//    global coordinates on the raw means; only the box subtracts the tile
+//    origin), each pixel blends the same records in the same order, and the
+//    boxes drop only pairs the cuts drop: the output repeats, to the bit,
+//    that of a walk which evaluates every pair. No atomics: a repeated
+//    launch gives the same bits;
+//  - a pixel's C sums leave as float4 stores where C is a multiple of 4 (a
+//    warp's 8 x 4 block is four runs of 8 pixels x C floats).
 //
 // K5 replays the same walk and uses the suffix identity
 //   dL/dalpha_k = T_k (g.c_k) - (G - H_k) / max(1 - alpha_k, 1e-6),
@@ -40,10 +72,8 @@
 // issue slots and latency of the per-pair walk and of the 14 per-record
 // pixel sums. What the design does about it (the template of splat.cu's
 // backwards, carried to record space; the helpers are shared in walk.cuh):
-//  - warp w owns the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1)); every
-//    record carries a box bounding the pixels where alpha >= 1/255 can hold
-//    (`stage_record`), and a warp evaluates only the records of a 16-record
-//    sub-chunk whose box meets its block;
+//  - a warp evaluates only the records of a 16-record sub-chunk whose box
+//    (`record_box`, K4's) meets its block;
 //  - a pixel evaluates 4 live records at a time (alpha, g.c and
 //    1 / (1 - alpha) are independent of the walk's state) and blends them
 //    front to back with selects, so the chain between two blends is T and H;
@@ -74,58 +104,176 @@ using namespace vtgs;
 
 constexpr int RECW = 16;
 constexpr int CMAX = 8;
-constexpr int CH = 128;             // records per K4 chunk
 
-__global__ void __launch_bounds__(TPX)
+// The box of a record, (xlo, xhi, ylo, yhi) about its tile-local mean (mx,
+// my), from the record alone: for the conic (a, b, c) with det = ac - b^2 >
+// 0 the half-extents of Q <= r2 (walk.cuh, box_radius2) are sqrt(r2 c /
+// det), sqrt(r2 a / det). det is lowered by a bound on its own rounding (a
+// thin, ill-conditioned conic cancels in ac - b^2), which only widens the
+// box. det <= 0 or an extent that is not finite: the whole tile (no cull).
+// op < 1/255: empty.
+__device__ __forceinline__ float4 record_box(float mx, float my, float ca,
+                                             float cb, float cc, float op) {
+  if (!(op >= ALPHA_MIN)) return make_float4(1e30f, -1e30f, 1e30f, -1e30f);
+  const float r2 = box_radius2(op);
+  const float ac = ca * cc, bb = cb * cb;
+  const float det = (ac - bb) - 1e-6f * (fabsf(ac) + bb);
+  const float hx = sqrtf(r2 * cc / det), hy = sqrtf(r2 * ca / det);
+  const bool whole = !(det > 0.0f) || !(hx <= 3e38f) || !(hy <= 3e38f);
+  return whole ? make_float4(-1e30f, 1e30f, -1e30f, 1e30f)
+               : make_float4(mx - hx, mx + hx, my - hy, my + hy);
+}
+
+// ---- K4 --------------------------------------------------------------------
+constexpr int CH = 256;             // records per K4 chunk
+constexpr int NBUF = 3;             // K4's ring: walked, arrived, in flight
+static_assert(CH % 32 == 0 && CH <= TPX, "a thread takes one box per chunk");
+static_assert(CH <= 256 && NG == 4, "a group's 4 record indices are 4 bytes");
+
+// One chunk of records as K4's walk reads it, record-major.
+struct RecStage {
+  float4 q[3][CH];   // [mx my ca cb] [cc op col0 col1] [col2 col3 col4 col5]
+  float2 r[CH];      // [col6 col7]          (the mean in GLOBAL pixels)
+};
+
+struct FwdSmem {
+  RecStage st[NBUF];
+  float4 box[2][CH];                  // xlo xhi ylo yhi, tile-local
+  unsigned live[NWARP][CH / 4 + 1];   // per warp: its live records of the chunk
+};
+
+// copy columns [c0, c0 + CH) of the first `rows` record rows of a tile to
+// their record-major places; columns at or past count are zero-filled
+__device__ __forceinline__ void copy_records(RecStage& st, const float* src,
+                                             int rows, int mpt, int c0,
+                                             int count, int p) {
+  for (int i = p; i < rows * CH; i += TPX) {
+    const int row = i / CH, col = i % CH;
+    const bool ok = c0 + col < count;
+    float* dst =
+        row < 12 ? reinterpret_cast<float*>(&st.q[row >> 2][col]) + (row & 3)
+                 : reinterpret_cast<float*>(&st.r[col]) + (row - 12);
+    cp_async4(dst, src + (size_t)row * mpt + (ok ? c0 + col : 0), ok);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float4 stage_box(const RecStage& st, int k,
+                                            float tox, float toy) {
+  const float4 a = st.q[0][k];
+  const float4 b = st.q[1][k];
+  return record_box(a.x - tox, a.y - toy, a.z, a.w, b.x, b.y);
+}
+
+__global__ void __launch_bounds__(TPX, 4)
 blend_fwd_kernel(const float* __restrict__ recs, const int* __restrict__ counts,
                  int mpt, int tiles_x, int C, float* __restrict__ out) {
-  __shared__ float s[6 + CMAX][CH];
+  extern __shared__ __align__(16) unsigned char smem_buf[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_buf);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
+  const int warp = p >> 5, lane = p & 31;
   const int count = counts[tile];
   const float* tr = recs + (size_t)tile * RECW * mpt;
-  const float px = (float)((tile % tiles_x) * TILE + p % TILE);
-  const float py = (float)((tile / tiles_x) * TILE + p / TILE);
+  const int tx0 = (tile % tiles_x) * TILE, ty0 = (tile / tiles_x) * TILE;
+  const float tox = (float)tx0, toy = (float)ty0;
+  const WarpBlock wb(warp, lane);
+  // the pairs are evaluated in global pixel coordinates on the raw means
+  const float px = (float)(tx0 + wb.pix % TILE);
+  const float py = (float)(ty0 + wb.pix / TILE);
   const int rows = 6 + C;
+  unsigned char* lst = reinterpret_cast<unsigned char*>(sm.live[warp]);
+
+  if (count > 0) {
+    copy_records(sm.st[0], tr, rows, mpt, 0, count, p);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  if (p < min(CH, count)) sm.box[0][p] = stage_box(sm.st[0], p, tox, toy);
+  if (CH < count) {
+    copy_records(sm.st[1], tr, rows, mpt, CH, count, p);
+    cp_async_wait_all();
+  }
+  __syncthreads();
 
   float T = 1.0f;
   float acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = 0.0f;
   bool done = false;
-  for (int c0 = 0; c0 < count; c0 += CH) {
+  int buf = 0, bb = 0;
+  // at the top of each turn: chunk c0 is in st[buf] with its boxes in
+  // box[bb], chunk c0 + CH has arrived in the next stage of the ring, and
+  // the stage after that (chunk c0 - CH's) is free
+  for (int c0 = 0; c0 < count; c0 += CH, bb ^= 1) {
     const int n = min(CH, count - c0);
-    for (int i = p; i < rows * CH; i += TPX) {
-      const int r = i / CH, k = i % CH;
-      if (k < n) s[r][k] = tr[r * mpt + c0 + k];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < n; ++k) {
-        const float dx = px - s[0][k], dy = py - s[1][k];
-        const float power =
-            -0.5f * (s[2][k] * dx * dx + s[4][k] * dy * dy) - s[3][k] * dx * dy;
-        const float alpha = fminf(ALPHA_MAX, s[5][k] * expf(power));
-        if (!(power <= 0.0f && alpha >= ALPHA_MIN)) continue;
-        const float Ta = T * (1.0f - alpha);
-        if (Ta < T_TERM) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
+    const int nxt = buf + 1 < NBUF ? buf + 1 : 0;
+    const int aft = nxt + 1 < NBUF ? nxt + 1 : 0;
+    if (c0 + 2 * CH < count)
+      copy_records(sm.st[aft], tr, rows, mpt, c0 + 2 * CH, count, p);
+    if (p < CH && c0 + CH + p < count)
+      sm.box[bb ^ 1][p] = stage_box(sm.st[nxt], p, tox, toy);
+    const RecStage& st = sm.st[buf];
+
+    if (!__all_sync(FULL, done)) {
+      // the chunk's records whose box meets this warp's block, compacted in
+      // record order into the warp's list
+      const int L = live_list(lst, sm.box[bb], n, wb, lane);
+      for (int i0 = 0; i0 < L; i0 += NG) {
+        if (__all_sync(FULL, done)) break;
+        // evaluate NG live records independently, then blend them front to
+        // back with selects, not branches: the chain from one blend to the
+        // next is T alone
+        const unsigned ks = *reinterpret_cast<const unsigned*>(lst + i0);
+        float al[NG];
+        bool kp[NG];
+        float col[NG][CMAX];
 #pragma unroll
-        for (int c = 0; c < CMAX; ++c)
-          if (c < C) acc[c] += w * s[6 + c][k];
-        T = Ta;
+        for (int j = 0; j < NG; ++j) {
+          const int k = (ks >> (8 * j)) & 0xffu;
+          const float4 a = st.q[0][k];
+          const float4 b = st.q[1][k];
+          const float4 c4 = st.q[2][k];
+          const float2 c2 = st.r[k];
+          const float dx = px - a.x, dy = py - a.y;
+          const float power =
+              -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
+          al[j] = fminf(ALPHA_MAX, b.y * expf(power));
+          kp[j] = i0 + j < L && power <= 0.0f && al[j] >= ALPHA_MIN;
+          col[j][0] = b.z;  col[j][1] = b.w;  col[j][2] = c4.x;
+          col[j][3] = c4.y; col[j][4] = c4.z; col[j][5] = c4.w;
+          col[j][6] = c2.x; col[j][7] = c2.y;
+        }
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const bool keep = kp[j] && !done;
+          const float Ta = T * (1.0f - al[j]);
+          const bool stop = keep && Ta < T_TERM;
+          const bool blend = keep && !stop;
+          done = done || stop;
+          const float w = blend ? al[j] * T : 0.0f;
+#pragma unroll
+          for (int c = 0; c < CMAX; ++c) acc[c] += w * col[j][c];
+          T = blend ? Ta : T;
+        }
       }
     }
-    // also the barrier that frees the stage for the next chunk
+    cp_async_wait_all();   // the records of chunk c0 + 2 CH, for the next turn
+    buf = nxt;
+    // also the barrier that publishes box[bb ^ 1] and frees this chunk's stage
     if (__syncthreads_or(!done) == 0) break;
   }
-  float* o = out + ((size_t)tile * TPX + p) * C;
+  // channels at or past C summed whatever their stage held; they stay here
+  float* o = out + ((size_t)tile * TPX + wb.pix) * C;
+  if ((C & 3) == 0) {
+    float4* o4 = reinterpret_cast<float4*>(o);
+    o4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (C == CMAX) o4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  } else {
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c)
-    if (c < C) o[c] = acc[c];
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) o[c] = acc[c];
+  }
 }
 
 // ---- K5 --------------------------------------------------------------------
@@ -146,28 +294,14 @@ struct RecSmem {
   float gct[CMAX][PST];             // GC^T: the cotangent columns per pixel
 };
 
-// Stage record k of the raw chunk (6 + C, RCH). The box, from the record
-// alone: for the conic (a, b, c) with det = ac - b^2 > 0 the half-extents
-// of Q <= r2 (walk.cuh, box_radius2) are sqrt(r2 c / det), sqrt(r2 a / det).
-// det is lowered by a bound on its own rounding (a thin, ill-conditioned
-// conic cancels in ac - b^2), which only widens the box. det <= 0 or an
-// extent that is not finite: the whole tile (no cull). op < 1/255: empty.
+// Stage record k of the raw chunk (6 + C, RCH), with its box.
 __device__ __forceinline__ void stage_record(RecSmem& sm, const float* raw,
                                              int k, int C, float tox,
                                              float toy) {
   const float mx = raw[k] - tox, my = raw[RCH + k] - toy;
   const float ca = raw[2 * RCH + k], cb = raw[3 * RCH + k];
   const float cc = raw[4 * RCH + k], op = raw[5 * RCH + k];
-  float4 box = make_float4(1e30f, -1e30f, 1e30f, -1e30f);
-  if (op >= ALPHA_MIN) {
-    const float r2 = box_radius2(op);
-    const float ac = ca * cc, bb = cb * cb;
-    const float det = (ac - bb) - 1e-6f * (fabsf(ac) + bb);
-    const float hx = sqrtf(r2 * cc / det), hy = sqrtf(r2 * ca / det);
-    const bool whole = !(det > 0.0f) || !(hx <= 3e38f) || !(hy <= 3e38f);
-    box = whole ? make_float4(-1e30f, 1e30f, -1e30f, 1e30f)
-                : make_float4(mx - hx, mx + hx, my - hy, my + hy);
-  }
+  const float4 box = record_box(mx, my, ca, cb, cc, op);
   float col[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) col[c] = c < C ? raw[(6 + c) * RCH + k] : 0.0f;
@@ -410,7 +544,11 @@ const char* vtgs_error_string(int err) {
 int vtgs_blend_fwd(const float* recs, const int* counts, int n_tiles, int mpt,
                    int tiles_x, int n_channels, float* out, void* stream) {
   if (n_channels < 1 || n_channels > CMAX) return (int)cudaErrorInvalidValue;
-  blend_fwd_kernel<<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
+  const int smem = (int)sizeof(FwdSmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      blend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  blend_fwd_kernel<<<n_tiles, TPX, smem, (cudaStream_t)stream>>>(
       recs, counts, mpt, tiles_x, n_channels, out);
   return (int)cudaGetLastError();
 }

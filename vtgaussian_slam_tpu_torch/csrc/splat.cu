@@ -284,17 +284,8 @@ splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
 
     if (!__all_sync(FULL, done)) {
       // the chunk's slots whose box meets this warp's block, compacted in
-      // slot order into the warp's list: a lane tests one box per 32 slots
-      int L = 0;
-      for (int k0 = 0; k0 < n; k0 += 32) {
-        const int k = k0 + lane;
-        const bool in = k < n && wb.meets(st.box[k]);
-        const unsigned m = __ballot_sync(FULL, in);
-        if (in) lst[L + __popc(m & ((1u << lane) - 1u))] = (unsigned char)k;
-        L += __popc(m);
-      }
-      if (lane < NG) lst[L + lane] = 0;   // pads the last group
-      __syncwarp();
+      // slot order into the warp's list
+      const int L = live_list(lst, st.box, n, wb, lane);
       for (int i0 = 0; i0 < L; i0 += NG) {
         if (__all_sync(FULL, done)) break;
         // evaluate NG live slots independently, then blend them front to

@@ -1,6 +1,7 @@
 // What the tile walks of splat.cu and blend.cu share: the walk's constants,
-// the cp.async staging of slot / record rows, the per-warp pixel block and
-// its box test, and the TF32 tensor-core helpers of the backwards.
+// the cp.async staging of slot / record rows, the per-warp pixel block, its
+// box test and the forwards' compacted list of a chunk's live entries, and
+// the TF32 tensor-core helpers of the backwards.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +52,28 @@ __device__ __forceinline__ float box_radius2(float op) {
   return 2.0f * logf(255.0f * op) * 1.001f + 1e-4f;
 }
 
+// The forwards' cull (K1 over slots, K4 over records): the entries k < n of
+// a chunk whose box meets the warp's block, compacted in entry order into
+// the warp's byte list (so a chunk holds at most 256 entries) and padded with
+// zeros to a whole group of NG; returns how many are live. A lane tests one
+// box per 32 entries; a ballot and a popcount give each live entry its place.
+// The walk then reads a group's NG indices with one load, and only a chunk's
+// last group is partial.
+__device__ __forceinline__ int live_list(unsigned char* lst, const float4* box,
+                                         int n, const WarpBlock& wb, int lane) {
+  int L = 0;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    const int k = k0 + lane;
+    const bool in = k < n && wb.meets(box[k]);
+    const unsigned m = __ballot_sync(FULL, in);
+    if (in) lst[L + __popc(m & ((1u << lane) - 1u))] = (unsigned char)k;
+    L += __popc(m);
+  }
+  if (lane < NG) lst[L + lane] = 0;   // pads the last group
+  __syncwarp();
+  return L;
+}
+
 // column swizzle of row r of a warp's (gp, w) buffer: the walk's row stores
 // and the A-fragment loads (rows gq, gq + 8; columns 8 ks + tq, + 4) are
 // both free of bank conflicts
@@ -63,6 +86,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -80,7 +107,7 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
     const bool ok = c0 + col < count;
     cp_async4(dst + i, src + (size_t)row * mpt + (ok ? c0 + col : 0), ok);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 // a = hi + lo for the TF32 products: hi is a rounded to TF32 (to nearest,

@@ -19,10 +19,11 @@ d opacity, d colors, 0...] (row-major: the JAX kernel writes the transposed
 (n_tiles, 16, mpt)), zero on every record no pixel walked. Pixels use
 global coordinates and keep power <= 0 (K1 keeps <= 1e-3).
 
-Beside the plain versions stand mirrors of what only K5 does on the card,
-for the CPU tests alone: `record_box` (the per-record cull box) and
-`backward_sums_tf32` (the split tensor-core products and the moment
-epilogue).
+Beside the plain versions stand mirrors of what only the kernels do on the
+card, for the CPU tests alone: `record_box` (the per-record cull box of K4
+and K5), `blend_forward_grouped` (K4's box cull, compacted live list and
+grouped select blends) and `backward_sums_tf32` (K5's split tensor-core
+products and moment epilogue).
 """
 from __future__ import annotations
 
@@ -30,12 +31,14 @@ import torch
 
 from . import _build
 from .blend import ALPHA_MAX, ALPHA_MIN, T_TERMINATE
-from .cuda_splat import (_split_tf32, box_radius2, cull_boxes,
-                         pixel_moment_basis)
+from .cuda_splat import (_split_tf32, block_pixels, box_meets_blocks,
+                         box_radius2, cull_boxes, pixel_moment_basis,
+                         unblock_pixels)
 
 RECW = 16
 TILE = 16
 TPX = TILE * TILE
+NWARP = TPX // 32
 
 
 def _blend_walk(recs, counts, tiles_x, tile_ids):
@@ -113,9 +116,9 @@ def _tile_origin(tile_ids, tiles_x):
 
 
 def record_box(recs, tiles_x, tile_ids=None):
-    """K5's per-record cull box (`stage_record` of csrc/blend.cu), (T, mpt,
-    4) [xlo, xhi, ylo, yhi] in tile-local pixel coordinates, from the
-    record alone: for the conic (a, b, c) with det = ac - b^2 > 0 the
+    """K4's and K5's per-record cull box (`record_box` of csrc/blend.cu),
+    (T, mpt, 4) [xlo, xhi, ylo, yhi] in tile-local pixel coordinates, from
+    the record alone: for the conic (a, b, c) with det = ac - b^2 > 0 the
     extent of Q <= box_radius2(op) is sqrt(r2 c / det) by sqrt(r2 a / det)
     about the mean. det is lowered by a bound on its own rounding, which
     only widens the box; det <= 0 or an extent that is not finite gives
@@ -132,6 +135,58 @@ def record_box(recs, tiles_x, tile_ids=None):
     hx, hy = torch.sqrt(r2 * cc / det), torch.sqrt(r2 * ca / det)
     whole = ~(det > 0) | ~(hx <= 3e38) | ~(hy <= 3e38)
     return cull_boxes(mx, my, hx, hy, has_box, whole)
+
+
+def blend_forward_grouped(recs, counts, tiles_x, n_channels=8, tile_ids=None,
+                          ng=4, chunk=256):
+    """K4's walk in plain PyTorch (the tests use it; no engine path does):
+    per `chunk` records, each warp's 8 x 4 pixel block compacts the records
+    whose box meets it into a list in record order; its pixels evaluate the
+    list `ng` records at a time (alpha does not depend on the walk's
+    state; a last group's missing entries are kept by no pixel) and blend
+    them front to back with selects; a pixel stops at the first record
+    whose transmittance after blending would fall below 1e-4. Returns
+    (T, 256, C) like `blend_forward_plain`."""
+    T, _, M = recs.shape
+    dev = recs.device
+    if tile_ids is None:
+        tile_ids = torch.arange(T, device=dev)
+    w = _blend_walk(recs, counts, tiles_x, tile_ids)
+    in_count = torch.arange(M, device=dev)[None] < counts.to(dev)[:, None]
+    live = (box_meets_blocks(record_box(recs, tiles_x, tile_ids))
+            & in_count[:, None])                                # (T, 8, M)
+    alpha = block_pixels(w["alpha"])                            # (T, 8, 32, M)
+    keep = block_pixels(w["keep"])
+    cols = recs[:, 6:6 + n_channels].transpose(1, 2)            # (T, M, C)
+    Tr = torch.ones((T, NWARP, 32), device=dev)
+    done = torch.zeros((T, NWARP, 32), dtype=torch.bool, device=dev)
+    acc = torch.zeros((T, NWARP, 32, n_channels), device=dev)
+    zero = torch.zeros((), device=dev)
+    tt = torch.arange(T, device=dev)[:, None, None]
+    for c0 in range(0, M, chunk):
+        lv = live[..., c0:c0 + chunk]
+        # the warp's list: its live records first, in record order
+        order = torch.argsort((~lv).to(torch.uint8), dim=-1, stable=True)
+        L = lv.sum(-1)                                          # (T, 8)
+        for i0 in range(0, int(L.max()), ng):
+            idx = c0 + order[..., i0:i0 + ng]                   # (T, 8, g)
+            g = idx.shape[-1]
+            in_list = i0 + torch.arange(g, device=dev) < L[..., None]
+            at = idx[:, :, None, :].expand(T, NWARP, 32, g)
+            al_g = torch.take_along_dim(alpha, at, -1)
+            kp_g = torch.take_along_dim(keep, at, -1) & in_list[:, :, None]
+            col_g = cols[tt, idx]                               # (T, 8, g, C)
+            for j in range(g):
+                al = al_g[..., j]
+                kp = kp_g[..., j] & ~done
+                Ta = Tr * (1.0 - al)
+                stop = kp & (Ta < T_TERMINATE)
+                blend = kp & ~stop
+                done = done | stop
+                wgt = torch.where(blend, al * Tr, zero)
+                acc = acc + wgt[..., None] * col_g[:, :, None, j]
+                Tr = torch.where(blend, Ta, Tr)
+    return unblock_pixels(acc)
 
 
 def _backward_pairs(recs, counts, out, g, tiles_x, tile_ids):

@@ -208,6 +208,13 @@ def block_pixels(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(2, 3).reshape(T, NWARP, 32, *rest)
 
 
+def unblock_pixels(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `block_pixels`: (T, 8, 32, ...) -> (T, 256, ...)."""
+    T, rest = x.shape[0], x.shape[3:]
+    x = x.reshape(T, 4, 2, 4, 8, *rest)            # (by, bx, y, x)
+    return x.transpose(2, 3).reshape(T, TPX, *rest)
+
+
 def box_meets_blocks(box: torch.Tensor) -> torch.Tensor:
     """(T, M, 4) tile-local boxes -> (T, 8, M): can a pixel of warp w's 8 x 4
     block lie in the box (the kernels' `WarpBlock::meets`)?"""
