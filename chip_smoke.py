@@ -20,13 +20,35 @@ Phases (any failure raises and the exit code is non-zero):
      inverse map and autograd); frame 0 + 2 tracked frames at the same
      iteration budgets, printed beside the slice's times for the same
      frames, under the same guards, with its own zeroed launch counts;
+  2c. section boundaries on the default routes: the same proxy with
+     baseframe_every 3 for 10 frames (60 tracking iterations, 80 on the
+     first section, 100 mapping iterations, the pair budget's closed loop
+     on): boundaries at frames 3, 6 and 9 select the overlapping sections,
+     track with the point-to-plane candidate metric and spawn sections 1-3;
+     later frames map with the global term over two frozen sections, and
+     sections outside the hot set are paged to pinned host memory. Per
+     frame: the section tracked against, track / spawn / densify / map
+     seconds, the frame's section's n_active, mpt and the global binning's
+     g_mpt, at boundaries the selection and the boundary timers, every
+     probe reading and the boost, PSNR and depth L1 of a render at the
+     committed pose from the section that holds the frame; then the ATE,
+     `final_stats()` and the guards (4 sections, PSNR > 20 dB, ATE < 5 cm,
+     finite depth L1, a page-out whose pinned host copy and page-in give
+     the section's tensors back to the bit), with zeroed launch counts;
+  2d. one boundary on the generic route: `track_cache` / `map_binned` off,
+     baseframe_every 2, 4 frames (frame 2 a replica p2p boundary through K4
+     + K5; frames 2 and 3 map with the global term over sections (0, 0)),
+     under the guards of 2b;
   3. each kernel against its plain PyTorch version on inputs captured from
      the two runs' final states (the track cache and its loss cotangent for
      K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
      the densify render records for K4, the generic route's records and its
      mapping-loss cotangent for K5), on 128 tiles (the 64 fullest + 64
      random), with the tolerance stated; K4 also on the generic route's
-     records, the input of all its launches but densify's, with that
+     records, the input of all its launches but densify's, K1 and K3 also
+     on phase 2c's global binning (the frozen sections and the current
+     one, at g_mpt) with the global term's loss cotangent, and K2 also on
+     the track cache of phase 2c's last boundary frame, each with that
      input's own time, bound and step counts; K6, which no engine path launches,
      also runs through `splat_blend(grad_mode="all")` under autograd, held
      against the plain rows and against K2's dR, dt;
@@ -48,12 +70,13 @@ Phases (any failure raises and the exit code is non-zero):
      beside it) on both of K4's inputs: whether the two outputs are equal
      to the bit, the largest difference, and both times;
   3b. the device-busy share of the loops (`[busy]` lines): ten iterations
-     each of the default tracking loop, the default mapping loop and the
-     generic tracking loop on the runs' final states, once timed by the
+     each of the default tracking loop, the default mapping loop, the
+     generic tracking loop and the replica boundary tracking loop with its
+     p2p target (phase 2c's frame 9) on the runs' final states, once timed by the
      host clock alone and once under `torch.profiler`: the summed device
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
-  4. a `{"kernels": [...]}` line (launches: the two engine runs' sum); the
+  4. a `{"kernels": [...]}` line (launches: the four engine runs' sum); the
      card line; and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -71,6 +94,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 NUM_FRAMES = 5
 GENERIC_FRAMES = 3    # frame 0 + 2 tracked frames on the generic route
+BOUNDARY_BFE, BOUNDARY_FRAMES = 3, 10     # phase 2c: four sections
+GENERIC_BFE, GENERIC_BOUNDARY_FRAMES = 2, 4   # phase 2d: one boundary
 TRACK_ITERS = 80      # room0 base1_num_iters
 MAP_ITERS = 100       # room0 mapping num_iters
 BUSY_ITERS = 10       # iterations of each loop under the profiler
@@ -179,6 +204,100 @@ def run_frames(engine, n, wrappers, valid0, tag):
     assert ate < 0.05, ate
     assert min(psnrs) > 20.0, psnrs
     return launches, [ft for _, ft, _, _ in rows]
+
+
+def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
+    """Drive frames 0..n-1 across section boundaries with every kernel
+    count zeroed just before and read just after; print per frame the
+    section, the phase split, the pair budgets, the selections, the probe
+    readings and the quality, then the ATE and `final_stats()`; check the
+    guards. Returns (launches, the device tensors of each section at the
+    start of its page-out)."""
+    import numpy as np
+    import torch
+    from vtgaussian_slam_tpu_torch.models.gaussians import section_tensors
+    for w in wrappers.values():
+        w.launches = 0
+    rows, refs, n_probe = [], {}, 0
+    bfe = engine.bfe
+    t_run = time.time()
+    for t in range(n):
+        engine.process_frame(t)
+        for i in engine._page_pending:
+            if i not in refs:
+                refs[i] = [x.clone() for x in
+                           section_tensors(engine.sections[i])]
+        gc = engine._gcache
+        rows.append(dict(
+            t=t, ft=engine.frame_times[t], sec=engine.section_ids[t],
+            n=engine.sections[t // bfe].n_active,
+            mpt=engine.map_backend_kwargs["max_pairs_per_tile"],
+            g_mpt=None if gc is None else gc.tab.shape[1],
+            fixed=engine.fixed_section_ids,
+            probes=engine.probe_log[n_probe:], boost=engine._mpt_boost,
+            corr=((engine.tracking_corr[-1:], engine.earliest_corr[-1:])
+                  if t and t % bfe == 0 else None),
+            paged=engine.paged_sections()))
+        n_probe = len(engine.probe_log)
+    engine._page_cold_finish()
+    torch.cuda.synchronize()
+    run_s = time.time() - t_run
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[{tag}] {n} frames in {run_s:.2f} s; launches {launches}")
+    psnrs, l1s = [], []
+    for r in rows:
+        psnr, l1 = engine.evaluate_frame(r["t"])
+        psnrs.append(psnr)
+        l1s.append(l1)
+        ft = r["ft"]
+        probes = "; ".join(f"mpt {m} harm {h:.5f} -> boost {b}"
+                           for m, h, b in r["probes"]) or "none read"
+        print(f"[{tag} frame {r['t']}] section {r['sec']} | track "
+              f"{ft['track']:.3f} s spawn {ft['spawn']:.3f} s densify "
+              f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active "
+              f"{r['n']} | mpt {r['mpt']} g_mpt {r['g_mpt']} | probes "
+              f"{probes}; boost {r['boost']} | PSNR {psnr:.2f} dB | depth L1 "
+              f"{l1 * 100:.3f} cm | host sections {r['paged']}")
+        if r["corr"] is not None:
+            timers = ", ".join(f"{k} {v:.3f}" for k, v in ft["timers"].items())
+            print(f"  boundary: tracking_corr {r['corr'][0]} earliest_corr "
+                  f"{r['corr'][1]} fixed_section_ids {r['fixed']} | {timers}")
+    ate = engine.ate(n)
+    print(f"[{tag}] ATE {ate * 100:.4f} cm over {n} frames (bound < 5 cm); "
+          f"min PSNR {min(psnrs):.2f} dB (bound > 20 dB); "
+          f"{len(engine.sections)} sections (want {n_sections}), n_active "
+          f"{[s.n_active for s in engine.sections]}")
+    print(f"[{tag}] final_stats " + json.dumps(engine.final_stats()))
+    vals = psnrs + l1s + [ate]
+    assert all(np.isfinite(v) for v in vals), vals
+    assert len(engine.sections) == n_sections, len(engine.sections)
+    assert engine.sections[0].n_active >= valid0
+    assert ate < 0.05, ate
+    assert min(psnrs) > 20.0, psnrs
+    return launches, refs
+
+
+def check_paging(engine, refs, tag):
+    """A paged-out section lies in pinned host memory, equal to the bit to
+    its device tensors at the start of its page-out, and a page-in gives
+    them back."""
+    import torch
+    from vtgaussian_slam_tpu_torch.models.gaussians import section_tensors
+    cold = [i for i in engine.paged_sections() if i in refs]
+    assert engine.stats["section_page_outs"] >= 1 and cold, (
+        engine.stats["section_page_outs"], engine.paged_sections())
+    i = cold[0]
+    host = section_tensors(engine.host_section(i))
+    pinned = all(x.device.type == "cpu" and x.is_pinned() for x in host)
+    same_host = all(torch.equal(a.cpu(), b) for a, b in zip(refs[i], host))
+    back = section_tensors(engine._sec(i))
+    same_back = all(x.device.type == "cuda" and torch.equal(a, x)
+                    for a, x in zip(refs[i], back))
+    print(f"[{tag}] paging: section {i} on the host, pinned {pinned}, equal "
+          f"to its device tensors at page-out {same_host}; paged back in, "
+          f"equal {same_back}; page-outs {engine.stats['section_page_outs']}, "
+          f"page-ins {engine.stats['section_page_ins']}")
+    assert pinned and same_host and same_back
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 2, per: int = 1) -> float:
@@ -471,7 +590,8 @@ def main() -> int:
                                                        loss_from_render,
                                                        slam_records)
     from vtgaussian_slam_tpu_torch.core.map_cache import (accum_to_result,
-                                                          pack_fields8)
+                                                          pack_fields8,
+                                                          trunc_probe)
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
     from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
     from vtgaussian_slam_tpu_torch.ops import geometry as geo
@@ -517,8 +637,55 @@ def main() -> int:
                               "generic")
     missing = [k for k in ("K4", "K5") if launches2[k] <= 0]
     assert not missing, f"kernels never launched on the generic route: {missing}"
-    launches = {k: launches1[k] + launches2[k] for k in wrappers}
-    print(f"[launches] slice {launches1}; generic route {launches2}; K6 "
+
+    # ---- phase 2c: section boundaries on the default routes -------------
+    config3 = room0_proxy_config()
+    config3["baseframe_every"] = BOUNDARY_BFE
+    t0 = time.time()
+    engine3 = VTGaussianSLAM(config3, device="cuda")
+    torch.cuda.synchronize()
+    tr3 = config3["tracking"]
+    print(f"[boundaries] init {time.time() - t0:.2f} s: baseframe_every "
+          f"{engine3.bfe}, {BOUNDARY_FRAMES} frames, tracking "
+          f"{tr3['base1_num_iters']} / {tr3['num_iters']} iterations, mapping "
+          f"{config3['mapping']['num_iters']}, selection "
+          f"{engine3.dataset_name}, auto pair budget "
+          f"{config3['tpu'].get('auto_pair_budget', True)}")
+    launches3, refs3 = run_boundaries(engine3, BOUNDARY_FRAMES, wrappers,
+                                      valid0, "boundaries", 4)
+    missing = [k for k in ("K1", "K2", "K3", "K4") if launches3[k] <= 0]
+    assert not missing, f"kernels never launched across boundaries: {missing}"
+    check_paging(engine3, refs3, "boundaries")
+    # the truncation probe at the last frame's pose, at the engine's budget
+    # and starved to 128 pairs per tile
+    sec_l = engine3.sections[-1]
+    t_l = BOUNDARY_FRAMES - 1
+    harms = {m: float(trunc_probe(
+        sec_l.params, sec_l.active_mask(), engine3.traj.quats[t_l],
+        engine3.traj.trans[t_l], engine3.cam,
+        span_cap=engine3.backend_kwargs["span_cap"], mpt=m,
+        select=engine3._bin_select)) for m in (128, 512)}
+    print(f"[boundaries] truncation harm (pixels whose rgb moves > 1/255 "
+          f"against 4x the budget) at frame {t_l}'s pose: "
+          + ", ".join(f"mpt {m} {h:.5f}" for m, h in harms.items()))
+
+    # ---- phase 2d: one boundary on the generic route --------------------
+    config4 = generic_route_config()
+    config4["baseframe_every"] = GENERIC_BFE
+    config4["tracking"]["base1_num_iters"] = TRACK_ITERS
+    config4["mapping"]["num_iters"] = MAP_ITERS
+    engine4 = VTGaussianSLAM(config4, device="cuda")
+    assert not engine4.track_cached and not engine4.map_binned
+    launches4, _ = run_boundaries(engine4, GENERIC_BOUNDARY_FRAMES, wrappers,
+                                  valid0, "generic boundary", 2)
+    assert engine4.fixed_section_ids == (0, 0), engine4.fixed_section_ids
+    missing = [k for k in ("K4", "K5") if launches4[k] <= 0]
+    assert not missing, f"kernels never launched on the generic boundary: {missing}"
+
+    runs = (launches1, launches2, launches3, launches4)
+    launches = {k: sum(r[k] for r in runs) for k in wrappers}
+    print(f"[launches] slice {launches1}; generic route {launches2}; "
+          f"boundaries {launches3}; generic boundary {launches4}; K6 "
           f"launches on the engine paths: {launches['K6']} (no engine path "
           f"calls splat_blend's \"all\" mode)")
 
@@ -588,13 +755,63 @@ def main() -> int:
     (g5,) = torch.autograd.grad(out.loss, (out_v,))
     g5 = g5.contiguous()
 
+    # K1 / K3 on phase 2c's global binning: [frozen sections; the current
+    # section's field table] at its base keyframe, with the global term's
+    # mapping-loss cotangent against that keyframe (ring 0)
+    gc3 = engine3._gcache
+    t_base = (BOUNDARY_FRAMES - 1) // BOUNDARY_BFE * BOUNDARY_BFE
+    sec3 = engine3.sections[t_base // BOUNDARY_BFE]
+    gR9 = geo.quat_to_rotmat(geo.normalize(gc3.quat)).reshape(9)
+    slots_g = gather_channels(
+        torch.cat([gc3.fixed_fields8, pack_fields8(sec3.params)]), gc3.tab)
+    accum_g = cs.splat_forward(slots_g, gR9, gc3.trans, gc3.counts, cam,
+                               tiles_x)
+    acc_v = accum_g.detach().requires_grad_(True)
+    gframe = type(frame)(color=engine3.ring_colors[0],
+                         depth=engine3.ring_depths[0])
+    out = loss_from_render(accum_to_result(acc_v, cam), gframe,
+                           engine3._loss_cfg(False), 0.5, False)
+    (g_g,) = torch.autograd.grad(out.loss, (acc_v,))
+    g_g = g_g.contiguous()
+    cp_g = cs.cp_vector(gR9, gc3.trans, cam)
+    T_g, M_g = slots_g.shape[0], slots_g.shape[2]
+
+    # K2 on the last boundary frame's track cache: the section it tracked
+    # against, at the committed pose, with the tracking-loss cotangent
+    sec_b = engine3._resident(engine3.section_ids[t_base])
+    q_b = engine3.traj.quats[t_base].clone()
+    tr_b = engine3.traj.trans[t_base].clone()
+    bk3 = engine3.backend_kwargs
+    tc_b = build_track_cache(sec_b.params, sec_b.active_mask(), q_b, tr_b,
+                             cam, span_cap=bk3["span_cap"],
+                             max_pairs_per_tile=bk3["max_pairs_per_tile"],
+                             chunk=bk3["chunk"], select=engine3._bin_select)
+    slots_b, counts_b = tc_b.slots8, tc_b.counts
+    R9b = geo.quat_to_rotmat(geo.normalize(q_b)).reshape(9)
+    accum_b = cs.splat_forward(slots_b, R9b, tr_b, counts_b, cam, tiles_x)
+    acc_v = accum_b.detach().requires_grad_(True)
+    img = cs.assemble_image(acc_v, cam)
+    frame_b = engine3._stage(*engine3.dataset[t_base][:2])
+    out = loss_from_render(
+        RenderResult(im=img[:3], depth=img[3:4], silhouette=img[4],
+                     depth_sq=img[5:6], radii=tc_b.radii),
+        frame_b, engine3._loss_cfg(True), 0.99, True)
+    (g_b,) = torch.autograd.grad(out.loss, (acc_v,))
+    g_b = g_b.contiguous()
+    cp_b = cs.cp_vector(R9b, tr_b, cam)
+    T_b = slots_b.shape[0]
+
     cp_t = cs.cp_vector(R9, trans, cam)
     cp_m = cs.cp_vector(kR9, kfc.trans, cam)
     T_t, M_t = slots_t.shape[0], slots_t.shape[2]
     T_m, M_m = slots_m.shape[0], slots_m.shape[2]
     print(f"[kernels] shapes: track slots {tuple(slots_t.shape)}, map slots "
           f"{tuple(slots_m.shape)}, densify records {tuple(recs.shape)}, "
-          f"generic-route records {tuple(recs5.shape)}")
+          f"generic-route records {tuple(recs5.shape)}, global binning "
+          f"slots {tuple(slots_g.shape)} (phase 2c, frame {t_base}'s "
+          f"section {t_base // BOUNDARY_BFE} over fixed sections "
+          f"{engine3.fixed_section_ids}), boundary track slots "
+          f"{tuple(slots_b.shape)} (frame {t_base})")
 
     # K6 through splat_blend(grad_mode="all") under autograd (K1 forward,
     # K6 backward, dR / dt contracted and d mean rotated to world by the
@@ -622,6 +839,8 @@ def main() -> int:
 
     work_t = splat_work(slots_t, counts_t, cp_t, tiles_x)   # K1, K2 and K6
     work_5 = blend_work(recs5, counts5, tiles_x)    # K5, and K4's other input
+    work_g = splat_work(slots_g, gc3.counts, cp_g, tiles_x)    # K1, K3 global
+    global_tag = f"global binning at g_mpt {M_g}"
     # records no pixel walks are not read: count the walked ones
     k4_bytes = lambda r: lambda s: (s * (6 + BLEND_CHANNELS) * 4
                                     + r.shape[0] * 4
@@ -637,7 +856,15 @@ def main() -> int:
                 slots_t[ids], counts_t[ids], cp_t, tiles_x, ids),
             T=T_t, sub=lambda o, ids: o[ids].transpose(1, 2), tol=3e-4,
             bytes=lambda s: s * 8 * 4 + T_t * 4 + T_t * 8 * 256 * 4,
-            work=lambda: work_t),
+            work=lambda: work_t,
+            also=[dict(
+                tag=global_tag, counts=gc3.counts,
+                kernel=lambda: cs.splat_forward(slots_g, gR9, gc3.trans,
+                                                gc3.counts, cam, tiles_x),
+                plain=lambda ids: cs.splat_forward_plain(
+                    slots_g[ids], gc3.counts[ids], cp_g, tiles_x, ids),
+                bytes=lambda s: s * 8 * 4 + T_g * 4 + T_g * 8 * 256 * 4,
+                work=lambda: work_g)]),
         "K2": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -649,7 +876,18 @@ def main() -> int:
             T=T_t, sub=lambda o, ids: o[ids], tol=1e-3,
             bytes=lambda s: (s * 8 * 4 + T_t * 4 + 2 * T_t * 8 * 256 * 4
                              + T_t * 12 * 4),
-            work=lambda: work_t),
+            work=lambda: work_t,
+            also=[dict(
+                tag=f"frame {t_base}'s boundary track cache",
+                counts=counts_b,
+                kernel=lambda: cs.splat_backward_pose(
+                    slots_b, R9b, tr_b, counts_b, accum_b, g_b, cam, tiles_x),
+                plain=lambda ids: cs.splat_backward_pose_plain(
+                    slots_b[ids], counts_b[ids], cp_b, tiles_x, accum_b[ids],
+                    g_b[ids], ids),
+                bytes=lambda s: (s * 8 * 4 + T_b * 4 + 2 * T_b * 8 * 256 * 4
+                                 + T_b * 12 * 4),
+                work=lambda: splat_work(slots_b, counts_b, cp_b, tiles_x))]),
         "K3": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -662,7 +900,18 @@ def main() -> int:
             T=T_m, sub=lambda o, ids: o[ids], tol=1e-3,
             bytes=lambda s: (s * 8 * 4 + T_m * 4 + 2 * T_m * 8 * 256 * 4
                              + T_m * M_m * 8 * 4),
-            work=lambda: splat_work(slots_m, kfc.counts, cp_m, tiles_x)),
+            work=lambda: splat_work(slots_m, kfc.counts, cp_m, tiles_x),
+            also=[dict(
+                tag=global_tag, counts=gc3.counts,
+                kernel=lambda: cs.splat_backward_vals_rows(
+                    slots_g, gR9, gc3.trans, gc3.counts, accum_g, g_g, cam,
+                    tiles_x),
+                plain=lambda ids: cs.splat_backward_vals_rows_plain(
+                    slots_g[ids], gc3.counts[ids], cp_g, tiles_x,
+                    accum_g[ids], g_g[ids], ids),
+                bytes=lambda s: (s * 8 * 4 + T_g * 4 + 2 * T_g * 8 * 256 * 4
+                                 + T_g * M_g * 8 * 4),
+                work=lambda: work_g)]),
         "K4": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:246",
@@ -673,14 +922,14 @@ def main() -> int:
             T=recs.shape[0], sub=lambda o, ids: o[ids], tol=3e-4,
             bytes=k4_bytes(recs),
             work=lambda: blend_work(recs, counts4, tiles_x),
-            # its other input: 462 of its 466 launches see such records
-            also=dict(
+            # its other input: most of its launches see such records
+            also=[dict(
                 tag="generic-route records", counts=counts5,
                 kernel=lambda: cb.blend_forward(recs5, counts5, tiles_x,
                                                 BLEND_CHANNELS),
                 plain=lambda ids: cb.blend_forward_plain(
                     recs5[ids], counts5[ids], tiles_x, BLEND_CHANNELS, ids),
-                bytes=k4_bytes(recs5), work=lambda: work_5)),
+                bytes=k4_bytes(recs5), work=lambda: work_5)]),
         "K5": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:274",
@@ -742,7 +991,9 @@ def main() -> int:
               f"ms | bound {b_ms:.4f} ms ({b_by}; {work['walked']} pairs "
               f"walked, {work['blended']} blended, {work['slots']} slots "
               f"walked) | launches on the engine paths {launches[name]} "
-              f"(slice {launches1[name]}, generic route {launches2[name]})")
+              f"(slice {launches1[name]}, generic route {launches2[name]}, "
+              f"boundaries {launches3[name]}, generic boundary "
+              f"{launches4[name]})")
         if name != "K6":    # K6 walks K2's inputs
             steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
         row = {"name": name, "route": sp["route"],
@@ -750,12 +1001,14 @@ def main() -> int:
                "launches": launches[name], "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
-        also = sp.get("also")
-        if also:
+        for also in sp.get("also", []):
             print(f"[{name}] on the {also['tag']}, vs plain on 128 tiles")
             full = also["kernel"]()
             ids = pick_tiles(also["counts"])
-            err2 = check_close(name, full[ids], also["plain"](ids), sp["tol"])
+            ref = also["plain"](ids)
+            err2 = check_close(name, sp["sub"](full, ids),
+                               ref.transpose(1, 2) if name in ("K1", "K6")
+                               else ref, sp["tol"])
             same = torch.equal(full, also["kernel"]())
             print(f"  {name}: a repeated launch gives the same bits: {same}")
             if not same:
@@ -769,10 +1022,11 @@ def main() -> int:
                   f"{b2_ms:.4f} ms ({b2_by}; {work2['walked']} pairs walked, "
                   f"{work2['blended']} blended, {work2['slots']} slots "
                   f"walked)")
-            steps_line(name, work2, sub_chunks=False)
-            row["other_input"] = {"input": also["tag"], "max_abs_err": err2,
-                                  "ms": ms2, "bound_ms": b2_ms,
-                                  "bound_by": b2_by}
+            if name != "K6":
+                steps_line(name, work2, sub_chunks=name not in ("K1", "K4"))
+            row.setdefault("other_inputs", []).append(
+                {"input": also["tag"], "max_abs_err": err2, "ms": ms2,
+                 "bound_ms": b2_ms, "bound_by": b2_by})
         report.append(row)
 
     print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "
@@ -832,6 +1086,15 @@ def main() -> int:
         sec2.params, sec2.active_mask(),
         init_track_state(q2, tr2, tr_cfg["sil_thres"]), frame2, None, cam,
         tcfg_of(engine2)))
+    # the replica boundary loop of frame t_base: the p2p candidate metric
+    # (back-projection, projection and a row gather) every iteration
+    assert engine3.dataset_name == "replica"
+    p2p_b = engine3._overlap_p2p_target(engine3.earliest_corr[-1][0])
+    tcfg_b = tcfg_of(engine3)._replace(metric="p2p",
+                                       p2p_method=tr3["p2p_method"])
+    busy_line("boundary track (p2p)", lambda: track_frame_cached(
+        tc_b, init_track_state(q_b, tr_b, tr3["sil_thres"]), frame_b, None,
+        cam, tcfg_b, p2p_b))
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

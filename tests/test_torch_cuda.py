@@ -463,3 +463,122 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     recs, rc = _records()
     with pytest.raises(ValueError):
         CB.blend_forward(recs.to(card), rc.to(card), TILES_X, 9)
+
+
+def _paging_engine(device, n_sections=3, n=5000):
+    """The engine's paging state and methods around a few sections, without
+    a dataset: the methods under test are the engine's own."""
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
+    eng = object.__new__(VTGaussianSLAM)
+    eng.device = torch.device(device)
+    eng.section_paging = True
+    eng._page_pending, eng._paged = {}, {}
+    eng._page_stream = (torch.cuda.Stream(eng.device)
+                        if eng.device.type == "cuda" else None)
+    eng.stats = {k: 0 for k in ("t_page", "t_page_in", "t_page_fin",
+                                "section_page_ins", "section_prefetched_ins",
+                                "section_page_outs")}
+    eng.sections = [G.section_from_numpy_params(scene_np(n, 40 + i),
+                                                quantum=1024,
+                                                device=device)[0]
+                    for i in range(n_sections)]
+    return eng
+
+
+def _section_bits(sec):
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
+    return [x.detach().cpu().clone() for x in G.section_tensors(sec)]
+
+
+def test_paging_bookkeeping_on_the_cpu():
+    """On a CPU engine nothing moves, but the cold lists and counters run."""
+    eng = _paging_engine("cpu")
+    before = [x.data_ptr() for x in eng.sections[1].params.tensors()]
+    eng._page_cold_sections({0})
+    assert sorted(eng._page_pending) == [1, 2] and eng.paged_sections() == []
+    eng._page_cold_finish(hot={2})          # 2 became hot again: stays
+    assert eng.paged_sections() == [1]
+    assert eng.stats["section_page_outs"] == 1
+    sec = eng._sec(1)
+    assert eng.paged_sections() == [] and eng.stats["section_page_ins"] == 1
+    assert [x.data_ptr() for x in sec.params.tensors()] == before
+
+
+@pytest.mark.cuda
+def test_paging_round_trip_is_bit_exact(card):
+    """A page-out copies on the side stream behind the compute stream's
+    work; reading the pinned host copy must wait for it, and the device
+    memory it copies from must not be handed out again before it lands."""
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
+    eng = _paging_engine(card, n=200_000)
+    want = _section_bits(eng.sections[1])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of compute-stream work
+    eng._page_cold_sections({0, 2})
+    eng._page_cold_finish()
+    assert eng.paged_sections() == [1]
+    host = eng.sections[1]
+    assert all(x.device.type == "cpu" and x.is_pinned()
+               for x in G.section_tensors(host))
+    event = eng._paged[1]
+    assert not event.query(), "the copy ended before the check could race it"
+    # allocations on the compute stream while the copy waits: the freed
+    # device blocks of section 1 must not be reused under the copy
+    junk = [torch.full(x.shape, 7.0, device=card) for x in want
+            for _ in range(2)]
+    got = _section_bits(eng.host_section(1))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    del junk
+    back = eng._sec(1)
+    assert eng.paged_sections() == [] and eng.stats["section_page_ins"] == 1
+    assert all(x.device.type == "cuda" for x in G.section_tensors(back))
+    for a, b in zip(_section_bits(back), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mpt", [128, 384, 1024, 2048])
+def test_global_cache_kernels_match_plain(card, mpt):
+    """K1 and K3 on a global binning ([frozen prefix; trainable section])
+    at the pair-budget widths the ladder gives, against their plain
+    versions on the same slots (rtol 1e-4 / atol 1e-5 forward, 1e-3 of the
+    largest entry for the rows); the render's gradient reaches the
+    trainable rows only."""
+    from vtgaussian_slam_tpu_torch.core import map_cache as TMC
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
+        gather_channels
+    cam = torch_cam()
+    fixed, prm = torch_params(scene_np(1500, 50)), torch_params(scene_np(
+        2000, 51))
+    d = lambda p: type(p)(*[x.to(card) for x in p.tensors()])
+    q, t = torch.as_tensor(POSE_Q).to(card), torch.as_tensor(POSE_T).to(card)
+    gc = TMC.build_global_cache(
+        d(fixed), torch.ones(1500, dtype=torch.bool, device=card), d(prm),
+        torch.ones(2000, dtype=torch.bool, device=card), q, t, cam,
+        span_cap=2, max_pairs_per_tile=mpt, select="importance")
+    assert gc.tab.shape[1] == mpt
+    f8 = TMC.pack_fields8(d(prm))
+    slots = gather_channels(torch.cat([gc.fixed_fields8, f8]), gc.tab)
+    R9 = geo.quat_to_rotmat(geo.normalize(q)).reshape(9)
+    n1 = CS.splat_forward.launches
+    out = CS.splat_forward(slots, R9, t, gc.counts, cam, TILES_X)
+    assert CS.splat_forward.launches == n1 + 1
+    cp = CS.cp_vector(R9.cpu(), t.cpu(), cam)
+    ref = CS.splat_forward_plain(slots.cpu(), gc.counts.cpu(), cp, TILES_X)
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=1e-4, atol=1e-5)
+    g = torch.as_tensor(np.random.default_rng(mpt).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(card)
+    rows = CS.splat_backward_vals_rows(slots, R9, t, gc.counts, out, g, cam,
+                                       TILES_X)
+    ref_rows = CS.splat_backward_vals_rows_plain(
+        slots.cpu(), gc.counts.cpu(), cp, TILES_X, out.cpu(), g.cpu())
+    for col in range(3, 8):
+        assert_close_scaled(rows[..., col], ref_rows[..., col], 1e-3,
+                            f"col {col}")
+    v8 = f8.detach().clone().requires_grad_(True)
+    r = TMC.render_binned_global(v8, gc, cam)
+    (r.im ** 2).sum().backward()
+    assert v8.grad.shape == f8.shape and bool(v8.grad[:, 3:].abs().max() > 0)
+    assert gc.fixed_fields8.grad is None

@@ -112,7 +112,8 @@ def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
         j_n.append(int(jeng.sections[0].n_active))
 
     teng = TP.VTGaussianSLAM(cfg, device="cpu",
-                             map_draws=lambda t, n, count: draws[t][:n])
+                             map_draws=lambda t, n, count: (
+                                 draws[t][:n] if t in draws else None))
     t_n = [teng.sections[0].n_active]
     for t in range(FRAMES):
         teng.process_frame(t)
@@ -138,8 +139,10 @@ def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
         # Adam moves an entry: an outlier past it is a fault, not rounding
         reach = lrs[f] * FRAMES * ITERS
         assert np.abs(a - b).max() <= reach, (f, np.abs(a - b).max() / reach)
-    with pytest.raises(NotImplementedError, match="section boundaries"):
-        teng.process_frame(cfg["baseframe_every"])
+    # frame baseframe_every is a section boundary: it spawns section 1
+    teng.process_frame(cfg["baseframe_every"])
+    assert len(teng.sections) == 2 and teng.sections[1].n_active > 0
+    assert teng.fixed_section_ids == (0, 0)
 
 
 def test_cli_runs_the_first_frames(tmp_path, capsys):

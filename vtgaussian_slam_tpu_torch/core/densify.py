@@ -79,3 +79,19 @@ def first_frame_pointcloud(frame: Frame, cam: Camera,
     msq = geo.mean_sq_dist_projective(gt_depth.reshape(-1), K[0, 0], K[1, 1])
     colors = frame.color.reshape(3, -1).T
     return pts, colors, msq, keep.reshape(-1)
+
+
+@torch.no_grad()
+def base_frame_pointcloud(frame: Frame, cam: Camera, w2c: torch.Tensor,
+                          mask: torch.Tensor | None = None):
+    """Full-frame back-projection at a tracked pose, for the section a
+    boundary frame spawns. Returns (points, colors, mean_sq_dist, keep)."""
+    gt_depth = frame.depth[0]
+    keep = gt_depth > 0
+    if mask is not None:
+        keep = keep & mask
+    K = torch.as_tensor(cam.intrinsics, device=gt_depth.device)
+    pts = geo.backproject(gt_depth, K, c2w=geo.invert_se3(w2c))
+    msq = geo.mean_sq_dist_projective(gt_depth.reshape(-1), K[0, 0], K[1, 1])
+    colors = frame.color.reshape(3, -1).T
+    return pts, colors, msq, keep.reshape(-1)

@@ -10,7 +10,11 @@ slot gather from the (N, 8) field table -> K1 forward; backward: K3
 transpose of the gather).
 
 `MapCacheStore` keeps the per-keyframe caches of the current section with
-the JAX engine's refresh policy.
+the JAX engine's refresh policy. `GlobalBinCache` is the binning of
+[frozen sections; trainable section] at the section's base keyframe for
+the global-consistency term, and `trunc_probe` measures what the pair
+budget truncates: the share of pixels a render at the budget and one at
+4x it disagree on.
 """
 from __future__ import annotations
 
@@ -39,6 +43,17 @@ class KFBinCache(NamedTuple):
     trans: torch.Tensor     # (3,)
 
 
+class GlobalBinCache(NamedTuple):
+    """Binning of [frozen sections; trainable section] at the base
+    keyframe's pose."""
+    tab: torch.Tensor            # (T, mpt) int64 rows of the concat
+    counts: torch.Tensor         # (T,) int32
+    inv: SlotInv                 # sorted inverse of the TRAINABLE rows only
+    quat: torch.Tensor           # (4,)
+    trans: torch.Tensor          # (3,)
+    fixed_fields8: torch.Tensor  # (n_fixed, 8) frozen field rows
+
+
 def pack_fields8(params: GaussianParams) -> torch.Tensor:
     """The (N, 8) field table [means3d, logit_op, log_scale, rgb]."""
     return fields8(params)
@@ -50,12 +65,12 @@ def unpack_fields8(params: GaussianParams, f8: torch.Tensor) -> GaussianParams:
                           rgb_colors=f8[:, 5:8].contiguous())
 
 
-@torch.no_grad()
-def build_kf_cache(params: GaussianParams, active: torch.Tensor,
-                   cam_quat: torch.Tensor, cam_trans: torch.Tensor,
-                   cam: Camera, *, tile: int = 16, span_cap: int = 2,
-                   max_pairs_per_tile: int = 512,
-                   select: str = "depth") -> KFBinCache:
+def _bin_at(params: GaussianParams, active: torch.Tensor,
+            cam_quat: torch.Tensor, cam_trans: torch.Tensor, cam: Camera,
+            tile: int, span_cap: int, max_pairs_per_tile: int, select: str,
+            with_inverse: bool = True):
+    """Project the isotropic Gaussians at a pose and bin them (with the
+    inverse map), at the pair budget rounded up to 128."""
     tiles_x = -(-cam.width // tile)
     tiles_y = -(-cam.height // tile)
     mpt = -(-max_pairs_per_tile // 128) * 128
@@ -64,10 +79,48 @@ def build_kf_cache(params: GaussianParams, active: torch.Tensor,
     proj = project_gaussians(means_cam, params.unnorm_rotations,
                              torch.exp(params.log_scales), params.opacities(),
                              cam, active)
-    b = bin_gaussians(proj, tile, span_cap, tiles_x, tiles_y, mpt,
-                      with_inverse=True, select=select)
+    return bin_gaussians(proj, tile, span_cap, tiles_x, tiles_y, mpt,
+                         with_inverse=with_inverse, select=select)
+
+
+@torch.no_grad()
+def build_kf_cache(params: GaussianParams, active: torch.Tensor,
+                   cam_quat: torch.Tensor, cam_trans: torch.Tensor,
+                   cam: Camera, *, tile: int = 16, span_cap: int = 2,
+                   max_pairs_per_tile: int = 512,
+                   select: str = "depth") -> KFBinCache:
+    b = _bin_at(params, active, cam_quat, cam_trans, cam, tile, span_cap,
+                max_pairs_per_tile, select)
     return KFBinCache(tab=b.tab, counts=b.counts, inv=slot_inverse(b.inv_pos),
                       quat=cam_quat, trans=cam_trans)
+
+
+def concat_params(fixed: GaussianParams, params: GaussianParams
+                  ) -> GaussianParams:
+    """[fixed; params], field by field."""
+    return GaussianParams(*[torch.cat([f, p]) for f, p in
+                            zip(fixed.tensors(), params.tensors())])
+
+
+@torch.no_grad()
+def build_global_cache(fixed_params: GaussianParams,
+                       fixed_active: torch.Tensor, params: GaussianParams,
+                       active: torch.Tensor, cam_quat: torch.Tensor,
+                       cam_trans: torch.Tensor, cam: Camera, *,
+                       tile: int = 16, span_cap: int = 2,
+                       max_pairs_per_tile: int = 512,
+                       select: str = "depth") -> GlobalBinCache:
+    """Bin [fixed; trainable] at the base keyframe's pose. The inverse map
+    covers the trainable rows only (those after the fixed CAPACITY), so
+    the global term's gradient reaches the trainable section alone."""
+    b = _bin_at(concat_params(fixed_params, params),
+                torch.cat([fixed_active, active]), cam_quat, cam_trans, cam,
+                tile, span_cap, max_pairs_per_tile, select)
+    n_fixed = fixed_params.means3d.shape[0]
+    return GlobalBinCache(tab=b.tab, counts=b.counts,
+                          inv=slot_inverse(b.inv_pos[n_fixed:]),
+                          quat=cam_quat, trans=cam_trans,
+                          fixed_fields8=fields8(fixed_params))
 
 
 class SplatBinned(torch.autograd.Function):
@@ -116,6 +169,41 @@ def render_binned(f8: torch.Tensor, kfc: KFBinCache, cam: Camera
     """Render the trainable section through one keyframe's frozen binning."""
     return accum_to_result(splat_binned(f8, kfc.tab, kfc.inv, kfc.quat,
                                         kfc.trans, kfc.counts, cam), cam)
+
+
+def render_binned_global(f8: torch.Tensor, gc: GlobalBinCache, cam: Camera
+                         ) -> RenderResult:
+    """Render [frozen prefix; trainable section] through the global
+    binning; the gradient reaches `f8` (the trainable rows) only."""
+    cat = torch.cat([gc.fixed_fields8.detach(), f8])
+    return accum_to_result(splat_binned(cat, gc.tab, gc.inv, gc.quat,
+                                        gc.trans, gc.counts, cam), cam)
+
+
+@torch.no_grad()
+def trunc_probe(params: GaussianParams, active: torch.Tensor,
+                quat: torch.Tensor, trans: torch.Tensor, cam: Camera,
+                span_cap: int = 2, mpt: int = 512,
+                select: str = "importance") -> torch.Tensor:
+    """The measured truncation harm at one pose: the share of pixels whose
+    rgb differs by more than 1/255 between the render at the pair budget
+    `mpt` and the render at 4 mpt (K1 once each). A device scalar: the
+    engine reads it a frame later, so the probe adds no host wait. Each
+    binning and its slots live only inside this call."""
+    f8 = pack_fields8(params)
+    R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
+    tiles_x = -(-cam.width // 16)
+    ims = []
+    for budget in (mpt, 4 * mpt):
+        b = _bin_at(params, active, quat, trans, cam, 16, span_cap, budget,
+                    select, with_inverse=False)
+        accum = splat_forward(gather_channels(f8, b.tab), R9, trans,
+                              b.counts, cam, tiles_x)
+        del b
+        ims.append(assemble_image(accum, cam)[:3])
+        del accum
+    diff = (ims[0] - ims[1]).abs().amax(0)
+    return (diff > 1.0 / 255.0).float().mean()
 
 
 class MapCacheStore:

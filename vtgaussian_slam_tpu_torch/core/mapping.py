@@ -1,14 +1,21 @@
 """Mapping: one frame's Gaussian optimization.
 
 Parity: `vtgaussian_slam_tpu/core/mapping.py` (`map_frame`,
-`map_binned_loop`, `map_frame_binned`, without the global-consistency
-term, which needs a second section). Every iteration draws a keyframe
+`map_binned_loop`, `map_frame_binned`). Every iteration draws a keyframe
 uniformly, renders, takes the mapping loss and steps Adam (eps 1e-15).
 The binned route renders the (N, 8) field table through the keyframe's
 frozen binning (map_cache.splat_binned: K1 + K3) with zero lr on the mean
 columns; the generic route (`map_frame`) renders from scratch
 (render_slam: K4, backward K5) and steps every leaf whose lr is nonzero,
 per leaf.
+
+The global-consistency term (`use_global`): when the drawn keyframe's
+frame id is a multiple of baseframe_every, the loss of a render of
+[two frozen sections; the trainable section] at that keyframe is added.
+It carries gradient on the phase's first iteration only and is a logged
+value afterwards (skipped when `log_global_loss` is off; the trained
+parameters are the same either way), as the JAX loops do. The frozen rows
+never take a gradient.
 
 Draws: production draws come from a `torch.Generator` on the host (no
 device read per iteration); tests inject the JAX engine's draws instead,
@@ -31,6 +38,8 @@ class MappingConfig(NamedTuple):
     lrs: tuple             # sorted (field_name, lr) pairs
     loss_cfg: LossConfig   # tracking=False
     use_global: bool
+    baseframe_every: int = 1
+    log_global_loss: bool = True
 
 
 class KeyframeBuffer(NamedTuple):
@@ -42,6 +51,7 @@ class KeyframeBuffer(NamedTuple):
     count: int             # number of keyframes to draw from
     quats: torch.Tensor | None = None   # (B, 4) w2c rotations (generic)
     trans: torch.Tensor | None = None   # (B, 3)
+    frame_ids: Sequence[int] | None = None   # (B,) dataset frame ids
 
 
 def lrs8_of(lrs: dict, like: torch.Tensor) -> torch.Tensor:
@@ -58,19 +68,30 @@ def _draw(i: int, count: int, draws, generator) -> int:
     return int(torch.randint(0, count, (), generator=generator))
 
 
+def _global_mode(cfg: MappingConfig, kf: KeyframeBuffer, ring: int, i: int):
+    """How iteration i takes the global term for keyframe `ring`: "grad"
+    (the first iteration), "value" (later ones, when logged) or None."""
+    if not cfg.use_global or kf.frame_ids[ring] % cfg.baseframe_every:
+        return None
+    if i == 0:
+        return "grad"
+    return "value" if cfg.log_global_loss else None
+
+
 def map_frame(params: GaussianParams, active: torch.Tensor,
               kf: KeyframeBuffer, cam: Camera, cfg: MappingConfig,
               draws: Sequence[int] | None = None,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None,
+              fixed_params: GaussianParams | None = None,
+              fixed_active: torch.Tensor | None = None):
     """The generic mapping loop: per iteration, render the section from
     scratch at a drawn keyframe's pose (render_slam), take the mapping loss
     and step Adam per leaf on the leaves with nonzero lr; zero-lr leaves
-    stay frozen and take no gradient. `draws` (keyframe indices, one per
-    iteration) replace the generator's uniform draws over `kf.count`.
-    Returns (params, (num_iters, 3) history [loss, im, depth])."""
-    if cfg.use_global:
-        raise NotImplementedError(
-            "the global-consistency term arrives with section boundaries")
+    stay frozen and take no gradient. With `cfg.use_global`, the global
+    term renders [fixed_params (detached); the section]. `draws` (keyframe
+    indices, one per iteration) replace the generator's uniform draws over
+    `kf.count`. Returns (params, (num_iters, 3) history [loss, im, depth])."""
+    from .map_cache import concat_params
     lr_of = dict(cfg.lrs)
     names = [a for f, a in PARAM_KEYS if lr_of.get(f, 0.0) != 0.0]
     lrs = [lr_of[f] for f, a in PARAM_KEYS if a in names]
@@ -78,6 +99,8 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
     frozen = {a: getattr(params, a).detach() for _, a in PARAM_KEYS
               if a not in names}
     opt = adam_init(leaves)
+    if cfg.use_global:
+        fixed = GaussianParams(*[x.detach() for x in fixed_params.tensors()])
     hist = torch.zeros((cfg.num_iters, 3), device=params.means3d.device)
     for i in range(cfg.num_iters):
         k = _draw(i, kf.count, draws, generator)
@@ -86,25 +109,33 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
         p = GaussianParams(**frozen, **dict(zip(names, vs)))
         out = compute_loss(p, active, kf.quats[k], kf.trans[k], frame, cam,
                            cfg.loss_cfg, 0.5, False)
-        grads = list(torch.autograd.grad(out.loss, vs)) if vs else []
+        loss = out.loss
+        mode = _global_mode(cfg, kf, k, i)
+        if mode is not None:
+            with torch.set_grad_enabled(mode == "grad"):
+                g_loss = compute_loss(
+                    concat_params(fixed, p),
+                    torch.cat([fixed_active, active]), kf.quats[k],
+                    kf.trans[k], frame, cam, cfg.loss_cfg, 0.5, False).loss
+            loss = loss + g_loss
+        grads = list(torch.autograd.grad(loss, vs)) if vs else []
         leaves, opt = adam_step(leaves, grads, opt, lrs, eps=MAP_EPS)
-        hist[i] = torch.stack([out.loss, out.im_loss, out.depth_loss]).detach()
+        hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
     return GaussianParams(**frozen, **dict(zip(names, leaves))), hist
 
 
 def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
                     kfc: Sequence, slot_ids: Sequence[int], cfg: MappingConfig,
                     draws: Sequence[int] | None = None,
-                    generator: torch.Generator | None = None):
-    """The mapping loop over a binned renderer `render_local(f8, kfc_slot)`.
-    `draws` (cache-slot indices, one per iteration) replace the generator's
-    uniform draws over the `kf.count` cached slots. Returns
-    (params, (num_iters, 3) history [loss, im, depth])."""
+                    generator: torch.Generator | None = None,
+                    render_global=None):
+    """The mapping loop over binned renderers `render_local(f8, kfc_slot)`
+    and, with `cfg.use_global`, `render_global(f8)`. `draws` (cache-slot
+    indices, one per iteration) replace the generator's uniform draws over
+    the `kf.count` cached slots. Returns (params, (num_iters, 3) history
+    [loss, im, depth])."""
     from .map_cache import pack_fields8, unpack_fields8
 
-    if cfg.use_global:
-        raise NotImplementedError(
-            "the global-consistency term arrives with section boundaries")
     lrs8 = lrs8_of(dict(cfg.lrs), params.means3d)
     f8 = pack_fields8(params)
     opt = adam_init([f8])
@@ -117,22 +148,34 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
         v8 = f8.detach().requires_grad_(True)
         r = render_local(v8, kfc[slot])
         out = loss_from_render(r, frame, cfg.loss_cfg, half, False)
-        (g8,) = torch.autograd.grad(out.loss, (v8,))
+        loss = out.loss
+        mode = _global_mode(cfg, kf, ring, i)
+        if mode is not None:
+            with torch.set_grad_enabled(mode == "grad"):
+                g_loss = loss_from_render(render_global(v8), frame,
+                                          cfg.loss_cfg, half, False).loss
+            loss = loss + g_loss
+        (g8,) = torch.autograd.grad(loss, (v8,))
         (f8,), opt = adam_step([f8], [g8], opt, [lrs8], eps=MAP_EPS)
-        hist[i] = torch.stack([out.loss, out.im_loss, out.depth_loss]).detach()
+        hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
     return unpack_fields8(params, f8), hist
 
 
 def map_frame_binned(params: GaussianParams, kf: KeyframeBuffer, kfc: Sequence,
                      slot_ids: Sequence[int], cam: Camera, cfg: MappingConfig,
                      draws: Sequence[int] | None = None,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, gc=None):
     """`map_binned_loop` over per-keyframe frozen binnings
-    (map_cache.render_binned)."""
-    from .map_cache import render_binned
+    (map_cache.render_binned) and, with `cfg.use_global`, the global
+    binning `gc` (map_cache.GlobalBinCache)."""
+    from .map_cache import render_binned, render_binned_global
 
     def render_local(v8, k):
         return render_binned(v8, k, cam)
 
+    def render_global(v8):
+        return render_binned_global(v8, gc, cam)
+
     return map_binned_loop(render_local, params, kf, kfc, slot_ids, cfg,
-                           draws=draws, generator=generator)
+                           draws=draws, generator=generator,
+                           render_global=render_global)

@@ -1,11 +1,12 @@
 """Camera tracking: one frame's pose optimization.
 
 Parity: `vtgaussian_slam_tpu/core/tracking.py` (`track_loop`,
-`track_frame` over the generic renderer, `track_frame_cached`, metric
-"loss"). A fresh Adam per frame on
-(quat, trans); each iteration renders, takes the masked loss and its pose
-gradient, steps, and keeps the post-step pose of the lowest PRE-step loss
-as the best candidate. The adaptive silhouette threshold is picked on the
+`track_frame` over the generic renderer, `track_frame_cached`). A fresh
+Adam per frame on (quat, trans); each iteration renders, takes the masked
+loss and its pose gradient, steps, and keeps the post-step pose with the
+lowest metric as the best candidate: the PRE-step loss ("loss"), or at
+section boundaries the post-step pose's point-to-plane distance to the
+overlap frame ("p2p", core/p2p.py). The adaptive silhouette threshold is picked on the
 frame's first iteration (count == 0) and carried. Best-candidate
 bookkeeping stays on the device: the loop never waits on a host read.
 """
@@ -17,16 +18,19 @@ from typing import NamedTuple
 import torch
 
 from ..models.gaussians import GaussianParams
+from ..ops import geometry as geo
 from ..ops.camera import Camera
 from .losses import Frame, LossConfig, loss_from_render, render_slam
+from .p2p import P2PTarget, point2plane_metric
 
 
 class TrackingConfig(NamedTuple):
     num_iters: int
     lr_quat: float
     lr_trans: float
-    metric: str            # "loss" (the boundary "p2p" metric: later slice)
+    metric: str            # "loss" | "p2p"
     loss_cfg: LossConfig
+    p2p_method: str = "sum"   # "sum" | "max" | "max100"
 
 
 @dataclass
@@ -57,13 +61,16 @@ def init_track_state(quat: torch.Tensor, trans: torch.Tensor,
 
 
 def track_loop(render_fn, state: TrackState, frame: Frame,
-               aux_mask: torch.Tensor | None, cfg: TrackingConfig):
+               aux_mask: torch.Tensor | None, cfg: TrackingConfig,
+               p2p_target: P2PTarget | None = None, cam: Camera | None = None):
     """The tracking optimization loop over a pose-differentiable renderer
-    `render_fn(quat, trans) -> RenderResult`. Returns (state, im_hist,
+    `render_fn(quat, trans) -> RenderResult`. Metric "p2p" needs the
+    overlap frame's `p2p_target` and the camera. Returns (state, im_hist,
     depth_hist) with the per-iteration loss streams."""
-    if cfg.metric != "loss":
-        raise NotImplementedError(
-            "the boundary p2p metric arrives with section boundaries")
+    if cfg.metric not in ("loss", "p2p"):
+        raise ValueError(f"unknown tracking metric {cfg.metric!r}")
+    if cfg.metric == "p2p":
+        K = torch.as_tensor(cam.intrinsics, device=state.quat.device)
     b1, b2, eps = 0.9, 0.999, 1e-8
     dev = state.quat.device
     lr = torch.cat([torch.full((4,), cfg.lr_quat), torch.full((3,), cfg.lr_trans)]
@@ -90,13 +97,22 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
             pose = torch.cat([s.quat, s.trans]) - upd
             new_quat, new_trans = pose[:4], pose[4:]
             loss = out.loss.detach()
-            better = loss < s.min_metric
+            if cfg.metric == "loss":
+                metric = loss
+            else:
+                metric = point2plane_metric(
+                    p2p_target, frame.depth, K,
+                    geo.pose_to_w2c(geo.normalize(new_quat), new_trans),
+                    method=cfg.p2p_method)
+            # a NaN metric neither becomes the best candidate nor freezes
+            # the minimum at NaN
+            better = metric < s.min_metric
             lower = loss < s.min_loss
             s = TrackState(
                 quat=new_quat, trans=new_trans, m=m, v=v, count=count,
                 best_quat=torch.where(better, new_quat, s.best_quat),
                 best_trans=torch.where(better, new_trans, s.best_trans),
-                min_metric=torch.where(better, loss, s.min_metric),
+                min_metric=torch.where(better, metric, s.min_metric),
                 min_loss=torch.where(lower, loss, s.min_loss),
                 sil_thres=out.sil_thres_out.detach(),
                 im_loss=out.im_loss.detach(),
@@ -109,7 +125,7 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
 def track_frame(params: GaussianParams, active: torch.Tensor,
                 state: TrackState, frame: Frame,
                 aux_mask: torch.Tensor | None, cam: Camera,
-                cfg: TrackingConfig):
+                cfg: TrackingConfig, p2p_target: P2PTarget | None = None):
     """`track_loop` over the generic renderer (`render_slam`): every
     iteration projects, bins and blends from scratch (K4), and its pose
     gradient comes back through K5 and the projection by autograd."""
@@ -119,12 +135,12 @@ def track_frame(params: GaussianParams, active: torch.Tensor,
     def render_fn(quat, trans):
         return render_slam(frozen, active, quat, trans, cam, bk)
 
-    return track_loop(render_fn, state, frame, aux_mask, cfg)
+    return track_loop(render_fn, state, frame, aux_mask, cfg, p2p_target, cam)
 
 
 def track_frame_cached(cache, state: TrackState, frame: Frame,
                        aux_mask: torch.Tensor | None, cam: Camera,
-                       cfg: TrackingConfig):
+                       cfg: TrackingConfig, p2p_target: P2PTarget | None = None):
     """`track_loop` over the frozen-binning renderer (core/track_cache.py):
     one K1 and one K2 launch per iteration."""
     from .track_cache import render_cached
@@ -132,4 +148,4 @@ def track_frame_cached(cache, state: TrackState, frame: Frame,
     def render_fn(quat, trans):
         return render_cached(cache, quat, trans, cam)
 
-    return track_loop(render_fn, state, frame, aux_mask, cfg)
+    return track_loop(render_fn, state, frame, aux_mask, cfg, p2p_target, cam)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -169,6 +170,70 @@ def repad_section(section: Section, new_capacity: int) -> Section:
         vars=GaussianVars(repad(v.max_2d_radius), repad(v.means2d_grad_accum),
                           repad(v.denom), repad(v.timestep), v.scene_radius),
         n_active=section.n_active)
+
+
+VAR_KEYS = ("max_2d_radius", "means2d_grad_accum", "denom", "timestep")
+
+
+def map_section(section: Section, fn: Callable[[torch.Tensor], torch.Tensor]
+                ) -> Section:
+    """The section with `fn` applied to each of its tensors (the Gaussian
+    fields and the per-Gaussian statistics), e.g. to move it."""
+    p, v = section.params, section.vars
+    return Section(
+        params=GaussianParams(*[fn(x) for x in p.tensors()]),
+        vars=GaussianVars(*[fn(getattr(v, k)) for k in VAR_KEYS],
+                          v.scene_radius),
+        n_active=section.n_active)
+
+
+def section_tensors(section: Section) -> list[torch.Tensor]:
+    return (section.params.tensors()
+            + [getattr(section.vars, k) for k in VAR_KEYS])
+
+
+def concat_sections(sections: Sequence[Section], capacity: int | None = None,
+                    quantum: int = DEFAULT_CAPACITY_QUANTUM
+                    ) -> tuple[Section, list[int]]:
+    """Fuse sections into one buffer: their active prefixes back to back,
+    zero-padded to `capacity` (default round_capacity of the total), with
+    the LAST section's scene radius. Returns the fused Section and the
+    per-section active sizes (for `split_section`)."""
+    sizes = [int(s.n_active) for s in sections]
+    total = sum(sizes)
+    if capacity is None:
+        capacity = round_capacity(total, quantum)
+
+    def cat(xs):
+        return pad_rows(torch.cat([x[:n] for x, n in zip(xs, sizes)]),
+                        capacity - total)
+
+    params = GaussianParams(*[cat([s.params.tensors()[i] for s in sections])
+                              for i in range(len(PARAM_KEYS))])
+    vars_ = GaussianVars(*[cat([getattr(s.vars, k) for s in sections])
+                           for k in VAR_KEYS], sections[-1].vars.scene_radius)
+    return Section(params=params, vars=vars_, n_active=total), sizes
+
+
+def split_section(fused: Section, sizes: Sequence[int],
+                  originals: Sequence[Section]) -> list[Section]:
+    """Split a fused buffer back into per-section stores: each original
+    keeps its own capacity and has its active prefix overwritten."""
+    out = []
+    off = 0
+    for size, orig in zip(sizes, originals):
+        def take(fx, ox):
+            return torch.cat([fx[off:off + size], ox[size:]])
+
+        out.append(Section(
+            params=GaussianParams(*[take(f, o) for f, o in zip(
+                fused.params.tensors(), orig.params.tensors())]),
+            vars=GaussianVars(*[take(getattr(fused.vars, k),
+                                     getattr(orig.vars, k)) for k in VAR_KEYS],
+                              orig.vars.scene_radius),
+            n_active=orig.n_active))
+        off += size
+    return out
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """Differentiable geometry: quaternions, SE(3), back-projection.
 
-Parity: `vtgaussian_slam_tpu/ops/geometry.py` (the functions the first
-port slice calls). Conventions are the reference's: quaternions are wxyz,
+Parity: `vtgaussian_slam_tpu/ops/geometry.py` (the functions the port
+calls). Conventions are the reference's: quaternions are wxyz,
 stored unnormalized and normalized on use; a camera pose is w2c with
 w2c[:3, :3] = R(quat), w2c[:3, 3] = trans; back-projection uses
 (x - cx + 0.5) / fx pixel centres and the x1.005 depth inflation.
@@ -125,6 +125,99 @@ def mean_sq_dist_projective(depth_flat: torch.Tensor, fx, fy,
     """Per-pixel squared scale for new Gaussians: (z / ((fx+fy)/2))^2."""
     scale = depth_flat * depth_factor / ((fx + fy) / 2.0)
     return scale * scale
+
+
+def backproject_at(depth: torch.Tensor, intrinsics: torch.Tensor,
+                   rows: torch.Tensor, cols: torch.Tensor,
+                   c2w: torch.Tensor | None = None) -> torch.Tensor:
+    """Back-project selected pixels (row, col index tensors) to 3D points,
+    with rays at (col - cx) / fx (no +0.5 centre) and depth factor 1: the
+    keyframe-selection variant."""
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    z = depth[rows, cols]
+    xx = (cols.to(depth.dtype) - cx) / fx
+    yy = (rows.to(depth.dtype) - cy) / fy
+    pts = torch.stack([xx * z, yy * z, z], -1)
+    if c2w is not None:
+        pts = transform_points(c2w, pts)
+    return pts
+
+
+def project_points(pts_cam: torch.Tensor, intrinsics: torch.Tensor,
+                   eps: float = 1e-5):
+    """Camera-frame points (N, 3) -> (uv (N, 2), z (N,)), z guarded by
+    +eps as the selection code does."""
+    proj = pts_cam @ intrinsics.T
+    z = proj[:, 2] + eps
+    uv = proj[:, :2] / z[:, None]
+    return uv, z
+
+
+def _gradient(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """numpy.gradient along `dim`: central differences inside, one-sided
+    first differences at both ends."""
+    n = x.shape[dim]
+    a = x.narrow(dim, 0, 1)
+    b = x.narrow(dim, 1, 1)
+    y = x.narrow(dim, n - 2, 1)
+    z = x.narrow(dim, n - 1, 1)
+    mid = (x.narrow(dim, 2, n - 2) - x.narrow(dim, 0, n - 2)) / 2.0
+    return torch.cat([b - a, mid, z - y], dim)
+
+
+def depth_to_normals(depth: torch.Tensor, intrinsics: torch.Tensor
+                     ) -> torch.Tensor:
+    """Finite-difference camera-space normals (H, W) -> (H, W, 3): back-
+    project (no pixel centre, factor 1), central differences along x and y,
+    cross product, normalize."""
+    H, W = depth.shape
+    pts = backproject(depth, intrinsics, depth_factor=1.0,
+                      pixel_center=0.0).reshape(H, W, 3)
+    n = torch.linalg.cross(_gradient(pts, 1), _gradient(pts, 0), dim=-1)
+    return normalize(n)
+
+
+def frustum_mask(w2c: torch.Tensor, intrinsics: torch.Tensor,
+                 points_world: torch.Tensor, H: int, W: int,
+                 edge: float = 0.0) -> torch.Tensor:
+    """In-image test of world points: strict bounds with an `edge` margin
+    and z > 0 (z guarded by +1e-8)."""
+    proj = transform_points(w2c, points_world) @ intrinsics.T
+    z = proj[:, 2] + 1e-8
+    uv = proj[:, :2] / z[:, None]
+    return ((uv[:, 0] < W - edge) & (uv[:, 0] > edge)
+            & (uv[:, 1] < H - edge) & (uv[:, 1] > edge) & (z > 0))
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of img (H, W) at pixel coordinates uv (N, 2), zero
+    outside (grid_sample with align_corners=True and zero padding)."""
+    H, W = img.shape
+    x, y = uv[:, 0], uv[:, 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+
+    def tap(yy, xx):
+        inside = (xx >= 0) & (xx <= W - 1) & (yy >= 0) & (yy <= H - 1)
+        xi = torch.clamp(xx, 0, W - 1).long()
+        yi = torch.clamp(yy, 0, H - 1).long()
+        return torch.where(inside, img[yi, xi], torch.zeros_like(x))
+
+    return (tap(y0, x0) * (1 - wx) * (1 - wy) + tap(y0, x0 + 1) * wx * (1 - wy)
+            + tap(y0 + 1, x0) * (1 - wx) * wy + tap(y0 + 1, x0 + 1) * wx * wy)
+
+
+def visibility_mask(points_world: torch.Tensor, overlap_w2c: torch.Tensor,
+                    intrinsics: torch.Tensor, overlap_depth: torch.Tensor,
+                    thres: float) -> torch.Tensor:
+    """Depth-consistency visibility of world points in an overlap view:
+    |d_sample - z| < thres * min(d_sample, z) for the overlap camera's
+    bilinearly sampled depth."""
+    uv, z = project_points(transform_points(overlap_w2c, points_world),
+                           intrinsics)
+    d = bilinear_sample(overlap_depth, uv)
+    return (d - z).abs() < thres * torch.minimum(d, z)
 
 
 def constant_velocity_init(w2c_prev1: torch.Tensor,
