@@ -39,13 +39,31 @@ Phases (any failure raises and the exit code is non-zero):
      baseframe_every 2, 4 frames (frame 2 a replica p2p boundary through K4
      + K5; frames 2 and 3 map with the global term over sections (0, 0)),
      under the guards of 2b;
+  2e. the CLI and the evaluation: `eval_sequence` over phase 2c's 10
+     frames (its `export_params_ls`, taken while one section lay in pinned
+     host memory and held to that section's page-out copy) at the training
+     budget and at the eval_mode budget (`eval_backend_kwargs`), each
+     metric and the wall time printed; then `__main__.main` on
+     configs/synthetic/smoke.py (11 frames, 48x64, 3 sections) and
+     configs/synthetic/medium.py (30 frames, 240x320, 2 sections) with the
+     results under build/chip_smoke_cli/: exit 0, `params_ls.npy` with one
+     dict per section and the seven reference keys, `eval/` with the five
+     .txt files and one PNG per evaluated frame in each of the four
+     folders, "Final Average ATE RMSE" printed; PSNR, MS-SSIM, LPIPS, depth
+     L1, ATE and wall time beside the JAX package's numbers (PARITY.md
+     round 5); then `eval_mode` on the medium run's results directory from
+     its own config.py copy and from the original, under the guards (PSNR
+     > 20 dB, ATE < 5 cm, finite depth L1 and LPIPS); every run with its
+     own zeroed launch counts;
   3. each kernel against its plain PyTorch version on inputs captured from
      the two runs' final states (the track cache and its loss cotangent for
      K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
      the densify render records for K4, the generic route's records and its
      mapping-loss cotangent for K5), on 128 tiles (the 64 fullest + 64
      random), with the tolerance stated; K4 also on the generic route's
-     records, the input of all its launches but densify's, K1 and K3 also
+     records, the input of all its launches but densify's, and on phase
+     2e's eval render of phase 2c's last section at its last frame, at the
+     training budget and at the eval_mode budget; K1 and K3 also
      on phase 2c's global binning (the frozen sections and the current
      one, at g_mpt) with the global term's loss cotangent, and K2 also on
      the track cache of phase 2c's last boundary frame, each with that
@@ -76,8 +94,9 @@ Phases (any failure raises and the exit code is non-zero):
      host clock alone and once under `torch.profiler`: the summed device
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
-  4. a `{"kernels": [...]}` line (launches: the four engine runs' sum); the
-     card line; and as the last line
+  4. a `{"kernels": [...]}` line (launches: the sum over the engine runs
+     and phase 2e's evaluations and CLI runs); the card line; and as the
+     last line
      `{"ok": true, "device": {...}}`.
 
 It needs one CUDA card and the repository checkout around it: without
@@ -99,6 +118,20 @@ GENERIC_BFE, GENERIC_BOUNDARY_FRAMES = 2, 4   # phase 2d: one boundary
 TRACK_ITERS = 80      # room0 base1_num_iters
 MAP_ITERS = 100       # room0 mapping num_iters
 BUSY_ITERS = 10       # iterations of each loop under the profiler
+CLI_WORKDIR = os.path.join(REPO, "build", "chip_smoke_cli")
+# the JAX package's final numbers on the synthetic configs (PARITY.md,
+# round 5, on a TPU v5e; MS-SSIM from round 2; LPIPS not recorded), and
+# the spread of its recorded runs (rounds 1-5) that the port should land in
+JAX_CLI = {
+    "smoke": dict(psnr=43.42, ms_ssim=1.000, depth_l1_cm=None, ate_cm=2.55,
+                  psnr_range=(41.7, 44.2), ate_range_cm=(2.5, 3.0),
+                  l1_range_cm=None),
+    "medium": dict(psnr=52.21, ms_ssim=None, depth_l1_cm=1.06, ate_cm=0.33,
+                   psnr_range=(50.7, 52.2), ate_range_cm=(0.30, 0.43),
+                   l1_range_cm=(0.6, 1.1)),
+}
+PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities",
+              "log_scales", "cam_unnorm_rots", "cam_trans")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 outside the tensor
 # cores; the kernels do fp32 vector math and exp.
@@ -171,8 +204,7 @@ def run_frames(engine, n, wrappers, valid0, tag):
     split, quality and the guards, and return (launches, per-frame times)."""
     import numpy as np
     import torch
-    for w in wrappers.values():
-        w.launches = 0
+    zeroed(wrappers)
     rows = []
     t_run = time.time()
     for t in range(n):
@@ -189,8 +221,8 @@ def run_frames(engine, n, wrappers, valid0, tag):
         psnrs.append(psnr)
         l1s.append(l1)
         print(f"[{tag} frame {t}] track {ft['track']:.3f} s densify "
-              f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active "
-              f"{n_act} | mpt {mpt} | PSNR {psnr:.2f} dB | depth L1 "
+              f"{ft['densify']:.3f} s map {ft['map']:.3f} s ({stage(ft)}) | "
+              f"n_active {n_act} | mpt {mpt} | PSNR {psnr:.2f} dB | depth L1 "
               f"{l1 * 100:.3f} cm")
     ate = engine.ate(n)
     print(f"[{tag}] ATE {ate * 100:.4f} cm (bound < 5 cm); min PSNR "
@@ -216,8 +248,7 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
     import numpy as np
     import torch
     from vtgaussian_slam_tpu_torch.models.gaussians import section_tensors
-    for w in wrappers.values():
-        w.launches = 0
+    zeroed(wrappers)
     rows, refs, n_probe = [], {}, 0
     bfe = engine.bfe
     t_run = time.time()
@@ -255,7 +286,8 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
         print(f"[{tag} frame {r['t']}] section {r['sec']} | track "
               f"{ft['track']:.3f} s spawn {ft['spawn']:.3f} s densify "
               f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active "
-              f"{r['n']} | mpt {r['mpt']} g_mpt {r['g_mpt']} | probes "
+              f"{r['n']} ({stage(ft)}) | mpt {r['mpt']} g_mpt {r['g_mpt']} | "
+              f"probes "
               f"{probes}; boost {r['boost']} | PSNR {psnr:.2f} dB | depth L1 "
               f"{l1 * 100:.3f} cm | host sections {r['paged']}")
         if r["corr"] is not None:
@@ -275,6 +307,13 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
     assert ate < 0.05, ate
     assert min(psnrs) > 20.0, psnrs
     return launches, refs
+
+
+def stage(ft):
+    """A frame's load (through the prefetcher) and its staging on the
+    device (seconds, from the frame's timers)."""
+    g = lambda k: ft["timers"].get(k, 0.0)
+    return f"load {g('t_dataset'):.3f} stage {g('t_stage'):.3f}"
 
 
 def check_paging(engine, refs, tag):
@@ -298,6 +337,135 @@ def check_paging(engine, refs, tag):
           f"equal {same_back}; page-outs {engine.stats['section_page_outs']}, "
           f"page-ins {engine.stats['section_page_ins']}")
     assert pinned and same_host and same_back
+
+
+class Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def zeroed(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_counts(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def check_export(params_ls, engine, refs, tag):
+    """`export_params_ls` of an engine with a section in pinned host
+    memory: one dict per section with the reference keys, and the paged
+    section's arrays equal to the bit to its tensors at page-out."""
+    import numpy as np
+    assert len(params_ls) == len(engine.sections)
+    paged = [i for i in engine.paged_sections() if i in refs]
+    assert paged, engine.paged_sections()
+    for p in params_ls:
+        assert tuple(sorted(p)) == tuple(sorted(PARAM_KEYS)), sorted(p)
+    for i in paged:
+        n = engine.sections[i].n_active
+        for k, ref in zip(PARAM_KEYS[:5], refs[i][:5]):
+            assert np.array_equal(params_ls[i][k], ref[:n].cpu().numpy()), k
+    print(f"[{tag}] export_params_ls: {len(params_ls)} sections, section(s) "
+          f"{paged} exported from pinned host memory, equal to the bit to "
+          f"their tensors at page-out; trajectory "
+          f"{params_ls[0]['cam_trans'].shape}")
+
+
+def eval_phase(engine, params_ls, wrappers, lpips, tag, backend_kwargs):
+    """`eval_sequence` over an engine run's frames and exported params at
+    `backend_kwargs`, with zeroed launch counts: the metrics, the wall
+    time and the launches."""
+    import torch
+    from vtgaussian_slam_tpu_torch.eval.evaluate import eval_sequence
+    cfg = engine.config
+    zeroed(wrappers)
+    t0 = time.time()
+    res = eval_sequence(
+        engine.dataset, params_ls, engine.frames_done,
+        os.path.join(CLI_WORKDIR, "".join(c if c.isalnum() else "_"
+                                          for c in tag), "eval"),
+        sil_thres=cfg["mapping"]["sil_thres"],
+        mapping_iters=cfg["mapping"]["num_iters"],
+        add_new_gaussians=cfg["mapping"]["add_new_gaussians"],
+        eval_every=1, baseframe_every=engine.bfe, save_frames=True,
+        lpips_fn=lpips, backend_kwargs=backend_kwargs, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts(wrappers)
+    print(f"[{tag}] eval_sequence over {engine.frames_done} frames at mpt "
+          f"{backend_kwargs['max_pairs_per_tile']}: PSNR {res['psnr']:.4f} "
+          f"dB, MS-SSIM {res['ms_ssim']:.6f}, LPIPS {res['lpips']:.6f} "
+          f"({lpips.source}), depth L1 {res['depth_l1'] * 100:.4f} cm, depth "
+          f"RMSE {res['depth_rmse'] * 100:.4f} cm, ATE "
+          f"{res['ate_rmse'] * 100:.4f} cm | {wall:.2f} s "
+          f"({wall / engine.frames_done:.3f} s per frame, 4 PNGs each) | "
+          f"launches {launches}")
+    guards(res, tag)
+    assert launches["K4"] == engine.frames_done, launches
+    return res, launches
+
+
+def guards(res, tag):
+    import numpy as np
+    ok = (res["psnr"] > 20.0 and res["ate_rmse"] < 0.05
+          and np.isfinite(res["depth_l1"]) and np.isfinite(res["lpips"]))
+    if not ok:
+        raise AssertionError(f"[{tag}] outside the guards: {res}")
+
+
+def cli_run(argv, wrappers, tag):
+    """`__main__.main(argv)` with zeroed launch counts and its stdout kept:
+    (exit code, stdout, wall seconds, launches)."""
+    import contextlib
+    import torch
+    from vtgaussian_slam_tpu_torch.__main__ import main as cli_main
+    zeroed(wrappers)
+    tee = Tee(sys.stdout)
+    print(f"[{tag}] python -m vtgaussian_slam_tpu_torch {' '.join(argv)}")
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, tee.text(), time.time() - t0, read_counts(wrappers)
+
+
+def check_results_dir(rdir, n_frames, n_sections, out, tag):
+    """The CLI's contract on disk and in its output; returns the metrics
+    read back from eval/ and the printed ATE."""
+    import numpy as np
+    params_ls = np.load(os.path.join(rdir, "params_ls.npy"), allow_pickle=True)
+    assert len(params_ls) == n_sections, len(params_ls)
+    for p in params_ls:
+        assert tuple(sorted(p)) == tuple(sorted(PARAM_KEYS)), sorted(p)
+        assert p["cam_trans"].shape == (1, 3, n_frames), p["cam_trans"].shape
+    m = {}
+    for k in ("psnr", "rmse", "l1", "ssim", "lpips"):
+        m[k] = np.atleast_1d(np.loadtxt(os.path.join(rdir, "eval", f"{k}.txt")))
+        assert m[k].shape == (n_frames,), (k, m[k].shape)
+    for sub in ("rendered_rgb", "rendered_depth", "rgb", "depth"):
+        got = len(os.listdir(os.path.join(rdir, "eval", sub)))
+        assert got == n_frames, (sub, got)
+    assert "Final Average ATE RMSE" in out
+    ate_cm = float(out.split("Final Average ATE RMSE:")[1].split("cm")[0])
+    res = {"psnr": float(m["psnr"].mean()), "ms_ssim": float(m["ssim"].mean()),
+           "lpips": float(m["lpips"].mean()),
+           "depth_l1": float(m["l1"].mean()), "ate_rmse": ate_cm / 100}
+    guards(res, tag)
+    return res
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 2, per: int = 1) -> float:
@@ -655,6 +823,10 @@ def main() -> int:
                                       valid0, "boundaries", 4)
     missing = [k for k in ("K1", "K2", "K3", "K4") if launches3[k] <= 0]
     assert not missing, f"kernels never launched across boundaries: {missing}"
+    # the map and trajectory as the CLI saves them, while a section lies in
+    # pinned host memory (phase 2e evaluates them)
+    params_ls3 = engine3.export_params_ls()
+    check_export(params_ls3, engine3, refs3, "boundaries")
     check_paging(engine3, refs3, "boundaries")
     # the truncation probe at the last frame's pose, at the engine's budget
     # and starved to 128 pairs per tile
@@ -682,12 +854,74 @@ def main() -> int:
     missing = [k for k in ("K4", "K5") if launches4[k] <= 0]
     assert not missing, f"kernels never launched on the generic boundary: {missing}"
 
-    runs = (launches1, launches2, launches3, launches4)
+    # ---- phase 2e: the evaluation and the CLI ----------------------------
+    import shutil
+    from vtgaussian_slam_tpu_torch.eval.evaluate import eval_backend_kwargs
+    from vtgaussian_slam_tpu_torch.eval.lpips import lpips_fn
+    shutil.rmtree(CLI_WORKDIR, ignore_errors=True)
+    lpips = lpips_fn(device="cuda")
+    bk_train3 = dict(engine3.backend_kwargs)
+    bk_eval3 = eval_backend_kwargs(params_ls3, engine3.cam.height,
+                                   engine3.cam.width, config3["tpu"])
+    _, launches_e1 = eval_phase(engine3, params_ls3, wrappers, lpips,
+                                "eval 2c, training budget", bk_train3)
+    _, launches_e2 = eval_phase(engine3, params_ls3, wrappers, lpips,
+                                "eval 2c, eval_mode budget", bk_eval3)
+    cli_runs = []
+    for name, n_frames, n_sec in (("smoke", 11, 3), ("medium", 30, 2)):
+        path = os.path.join(REPO, "configs", "synthetic", f"{name}.py")
+        tag = f"cli {name}"
+        rc, out, wall, lc = cli_run([path, "--set", f"workdir={CLI_WORKDIR}"],
+                                    wrappers, tag)
+        assert rc == 0, rc
+        rdir = os.path.join(CLI_WORKDIR, f"{name}_3")
+        res = check_results_dir(rdir, n_frames, n_sec, out, tag)
+        ref = JAX_CLI[name]
+        inside = (ref["psnr_range"][0] <= res["psnr"] <= ref["psnr_range"][1]
+                  and ref["ate_range_cm"][0] <= res["ate_rmse"] * 100
+                  <= ref["ate_range_cm"][1]
+                  and (ref["l1_range_cm"] is None or ref["l1_range_cm"][0]
+                       <= res["depth_l1"] * 100 <= ref["l1_range_cm"][1]))
+        print(f"[{tag}] {n_frames} frames, {n_sec} sections, {wall:.2f} s "
+              f"wall ({wall / n_frames:.3f} s per frame, eval included) | "
+              f"PSNR {res['psnr']:.4f} dB (JAX {ref['psnr']}), MS-SSIM "
+              f"{res['ms_ssim']:.6f} (JAX {ref['ms_ssim']}), LPIPS "
+              f"{res['lpips']:.6f} ({lpips.source}; JAX not recorded), depth "
+              f"L1 {res['depth_l1'] * 100:.4f} cm (JAX {ref['depth_l1_cm']}), "
+              f"ATE {res['ate_rmse'] * 100:.2f} cm (JAX {ref['ate_cm']}) | "
+              f"inside the JAX package's recorded range (PSNR "
+              f"{ref['psnr_range']}, ATE {ref['ate_range_cm']} cm, depth L1 "
+              f"{ref['l1_range_cm']} cm): {inside} | launches {lc}")
+        cli_runs.append(lc)
+        assert all(lc[k] > 0 for k in ("K1", "K2", "K3", "K4")), lc
+    # eval_mode re-scores the medium run's map at the budget sized from it,
+    # from the results directory's own config.py copy (copying it onto
+    # itself would raise SameFileError) and from the original
+    rdir = os.path.join(CLI_WORKDIR, "medium_3")
+    for src in (os.path.join(rdir, "config.py"),
+                os.path.join(REPO, "configs", "synthetic", "medium.py")):
+        tag = f"cli medium eval_mode ({os.path.relpath(src, REPO)})"
+        rc, out, wall, lc = cli_run(
+            [src, "--set", f"workdir={CLI_WORKDIR}", "--set", "eval_mode=True"],
+            wrappers, tag)
+        assert rc == 0, rc
+        res = check_results_dir(rdir, 30, 2, out, tag)
+        print(f"[{tag}] {wall:.2f} s | PSNR {res['psnr']:.4f} dB, MS-SSIM "
+              f"{res['ms_ssim']:.6f}, LPIPS {res['lpips']:.6f}, depth L1 "
+              f"{res['depth_l1'] * 100:.4f} cm, ATE "
+              f"{res['ate_rmse'] * 100:.2f} cm | launches {lc}")
+        assert lc["K4"] == 30, lc
+        cli_runs.append(lc)
+
+    runs = (launches1, launches2, launches3, launches4, launches_e1,
+            launches_e2, *cli_runs)
     launches = {k: sum(r[k] for r in runs) for k in wrappers}
     print(f"[launches] slice {launches1}; generic route {launches2}; "
-          f"boundaries {launches3}; generic boundary {launches4}; K6 "
-          f"launches on the engine paths: {launches['K6']} (no engine path "
-          f"calls splat_blend's \"all\" mode)")
+          f"boundaries {launches3}; generic boundary {launches4}; phase 2c "
+          f"eval at the training budget {launches_e1}, at the eval_mode "
+          f"budget {launches_e2}; CLI smoke, medium, medium eval_mode x2 "
+          f"{cli_runs}; K6 launches on the engine paths: {launches['K6']} "
+          f"(no engine path calls splat_blend's \"all\" mode)")
 
     # ---- phase 3: kernels against plain, on the slice's inputs ---------
     cam = engine.cam
@@ -736,6 +970,19 @@ def main() -> int:
 
     # K4 inputs: the densify render's records at the committed pose
     recs, counts4, _ = slam_records(sec.params, active, quat, trans, cam, bk)
+
+    # K4 on phase 2e's eval render of phase 2c's last section at its last
+    # frame, from the exported params, at both eval budgets
+    from vtgaussian_slam_tpu_torch.models.gaussians import \
+        section_from_numpy_params
+    sec_e, traj_e = section_from_numpy_params(params_ls3[-1], device="cuda")
+    t_e = BOUNDARY_FRAMES - 1
+    recs_et, counts_et, _ = slam_records(
+        sec_e.params, sec_e.active_mask(), traj_e.quats[t_e],
+        traj_e.trans[t_e], cam, bk_train3)
+    recs_ee, counts_ee, _ = slam_records(
+        sec_e.params, sec_e.active_mask(), traj_e.quats[t_e],
+        traj_e.trans[t_e], cam, bk_eval3)
 
     # K5 inputs: the generic route's records at its last committed pose and
     # the mapping-loss cotangent of their blend
@@ -929,7 +1176,27 @@ def main() -> int:
                                                 BLEND_CHANNELS),
                 plain=lambda ids: cb.blend_forward_plain(
                     recs5[ids], counts5[ids], tiles_x, BLEND_CHANNELS, ids),
-                bytes=k4_bytes(recs5), work=lambda: work_5)]),
+                bytes=k4_bytes(recs5), work=lambda: work_5),
+                  dict(tag=f"phase 2c eval render at the training budget "
+                           f"(mpt {recs_et.shape[2]})", counts=counts_et,
+                       launches=launches_e1["K4"],
+                       kernel=lambda: cb.blend_forward(
+                           recs_et, counts_et, tiles_x, BLEND_CHANNELS),
+                       plain=lambda ids: cb.blend_forward_plain(
+                           recs_et[ids], counts_et[ids], tiles_x,
+                           BLEND_CHANNELS, ids),
+                       bytes=k4_bytes(recs_et),
+                       work=lambda: blend_work(recs_et, counts_et, tiles_x)),
+                  dict(tag=f"phase 2c eval render at the eval_mode budget "
+                           f"(mpt {recs_ee.shape[2]})", counts=counts_ee,
+                       launches=launches_e2["K4"],
+                       kernel=lambda: cb.blend_forward(
+                           recs_ee, counts_ee, tiles_x, BLEND_CHANNELS),
+                       plain=lambda ids: cb.blend_forward_plain(
+                           recs_ee[ids], counts_ee[ids], tiles_x,
+                           BLEND_CHANNELS, ids),
+                       bytes=k4_bytes(recs_ee),
+                       work=lambda: blend_work(recs_ee, counts_ee, tiles_x))]),
         "K5": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:274",
@@ -993,7 +1260,9 @@ def main() -> int:
               f"walked) | launches on the engine paths {launches[name]} "
               f"(slice {launches1[name]}, generic route {launches2[name]}, "
               f"boundaries {launches3[name]}, generic boundary "
-              f"{launches4[name]})")
+              f"{launches4[name]}, phase 2e evaluations "
+              f"{launches_e1[name] + launches_e2[name]}, CLI runs "
+              f"{sum(r[name] for r in cli_runs)})")
         if name != "K6":    # K6 walks K2's inputs
             steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
         row = {"name": name, "route": sp["route"],
@@ -1024,9 +1293,11 @@ def main() -> int:
                   f"walked)")
             if name != "K6":
                 steps_line(name, work2, sub_chunks=name not in ("K1", "K4"))
-            row.setdefault("other_inputs", []).append(
-                {"input": also["tag"], "max_abs_err": err2, "ms": ms2,
-                 "bound_ms": b2_ms, "bound_by": b2_by})
+            entry = {"input": also["tag"], "max_abs_err": err2, "ms": ms2,
+                     "bound_ms": b2_ms, "bound_by": b2_by}
+            if "launches" in also:
+                entry["launches"] = also["launches"]
+            row.setdefault("other_inputs", []).append(entry)
         report.append(row)
 
     print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "

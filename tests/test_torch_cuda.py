@@ -582,3 +582,109 @@ def test_global_cache_kernels_match_plain(card, mpt):
     (r.im ** 2).sum().backward()
     assert v8.grad.shape == f8.shape and bool(v8.grad[:, 3:].abs().max() > 0)
     assert gc.fixed_fields8.grad is None
+
+
+def _deep_records(mpt, seed, n_tiles=9):
+    """Depth-ordered records that keep the pixels open deep into the list:
+    opacities just above the 1/255 alpha cut, so a record blends only near
+    its centre and the transmittance falls slowly; tile 0 holds mpt
+    records, the others fewer, one a count off every chunk."""
+    rng = np.random.default_rng(seed)
+    recs = np.zeros((n_tiles, 16, mpt), np.float32)
+    counts = rng.integers(mpt // 2, mpt + 1, n_tiles).astype(np.int32)
+    counts[0], counts[1] = mpt, mpt - 37
+    for t in range(n_tiles):
+        ty, tx = divmod(t, TILES_X)
+        k = counts[t]
+        recs[t, 0, :k] = tx * 16 + rng.uniform(-2, 18, k)
+        recs[t, 1, :k] = ty * 16 + rng.uniform(-2, 18, k)
+        recs[t, 2, :k] = recs[t, 4, :k] = rng.uniform(0.1, 0.6, k)
+        recs[t, 5, :k] = rng.uniform(0.004, 0.012, k)
+        recs[t, 6:14, :k] = rng.uniform(0, 1, (8, k))
+    return torch.as_tensor(recs), torch.as_tensor(counts)
+
+
+def _scaled_errors(got, ref):
+    """|got - ref| over each channel's largest |ref|: (max, 99.9th pct)."""
+    got, ref = got.double().reshape(-1, got.shape[-1]), ref.double().reshape(
+        -1, ref.shape[-1])
+    scaled = ((got - ref).abs() / ref.abs().amax(0).clamp(min=1e-30)).reshape(
+        -1)
+    return scaled.max().item(), torch.quantile(scaled, 0.999).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mpt", [2048, 16384])
+def test_blend_forward_at_eval_budgets(card, mpt):
+    """K4 at the pair budgets evaluation renders use (eval_pair_budget:
+    2048 at 680x1200, up to 16384 on small frames) against its plain
+    version on the card: errors scaled by each channel's largest value,
+    99.9% within 3e-4 and all within 2e-2 (chip_smoke's tolerances: the
+    plain version's transmittance is a cumprod over up to mpt factors, and
+    a pair at a threshold can be kept by one side and dropped by the
+    other); the walk reaches past half the list; a second launch gives the
+    same bits."""
+    recs, counts = (x.to(card) for x in _deep_records(mpt, mpt))
+    n4 = CB.blend_forward.launches
+    got = CB.blend_forward(recs, counts, TILES_X, 8)
+    assert CB.blend_forward.launches == n4 + 1
+    assert torch.equal(got, CB.blend_forward(recs, counts, TILES_X, 8))
+    ref = torch.cat([CB.blend_forward_plain(recs[i:i + 1], counts[i:i + 1],
+                                            TILES_X, 8, torch.tensor([i],
+                                                                     device=card))
+                     for i in range(recs.shape[0])])
+    err, p999 = _scaled_errors(got, ref)
+    assert err <= 2e-2 and p999 <= 3e-4, (err, p999)
+    w = CB._blend_walk(recs[:1], counts[:1], TILES_X,
+                       torch.zeros(1, dtype=torch.long, device=card))
+    assert bool(w["walked"][0, :, mpt // 2:].any())
+
+
+@pytest.mark.cuda
+def test_ms_ssim_and_lpips_on_card_match_cpu(card):
+    """MS-SSIM (depthwise f32 convolutions, TF32 off) within 1e-5 relative;
+    LPIPS within 1e-4 relative: cuDNN may pick another algorithm (Winograd,
+    FFT, implicit GEMM) for the AlexNet convolutions than the CPU does,
+    each rounding f32 sums of up to 3456 products differently."""
+    from vtgaussian_slam_tpu_torch.eval.lpips import lpips_fn
+    from vtgaussian_slam_tpu_torch.ops.ssim import ms_ssim
+    rng = np.random.default_rng(0)
+    for hw in ((48, 64), (240, 320), (680, 1200)):
+        a = rng.uniform(0, 1, (3,) + hw).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.08, a.shape), 0, 1).astype(np.float32)
+        ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+        want = float(ms_ssim(ta, tb))
+        got = float(ms_ssim(ta.to(card), tb.to(card)))
+        assert abs(got - want) <= 1e-5 * abs(want), (hw, got, want)
+        want = lpips_fn(device="cpu")(a, b)
+        got = lpips_fn(device=card)(a, b)
+        assert abs(got - want) <= 1e-4 * abs(want), (hw, got, want)
+
+
+@pytest.mark.cuda
+def test_smoke_cli_on_card(card, tmp_path, capsys):
+    """The CLI's contract on the card: 3 smoke frames through the kernels
+    (K1-K3 in the loops, K4 in densify and every eval render), the config
+    copy, params_ls.npy and eval/."""
+    import os
+    from vtgaussian_slam_tpu_torch.__main__ import main
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    wrappers = (CS.splat_forward, CS.splat_backward_pose,
+                CS.splat_backward_vals_rows, CB.blend_forward)
+    before = [w.launches for w in wrappers]
+    assert main([os.path.join(repo, "configs", "synthetic", "smoke.py"),
+                 "--device", "cuda", "--frames", "3", "--set",
+                 f"workdir={tmp_path}"]) == 0
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    out = capsys.readouterr().out
+    assert "Final Average ATE RMSE" in out
+    rdir = tmp_path / "smoke_3"
+    assert (rdir / "config.py").exists()
+    params_ls = np.load(rdir / "params_ls.npy", allow_pickle=True)
+    assert len(params_ls) == 1 and params_ls[0]["cam_trans"].shape == (1, 3, 3)
+    psnr = np.loadtxt(rdir / "eval" / "psnr.txt")
+    assert psnr.shape == (3,) and (psnr > 20).all(), psnr
+    for k in ("rmse", "l1", "ssim", "lpips"):
+        assert np.isfinite(np.loadtxt(rdir / "eval" / f"{k}.txt")).all(), k
+    for sub in ("rendered_rgb", "rendered_depth", "rgb", "depth"):
+        assert len(os.listdir(rdir / "eval" / sub)) == 3

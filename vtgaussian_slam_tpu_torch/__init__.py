@@ -6,8 +6,11 @@ kernels on the SLAM main path are CUDA C++ for sm_90a
 (`csrc/splat.cu`, `csrc/blend.cu`), built with nvcc at first use and bound
 with ctypes (`ops/rasterizer/_build.py`).
 
-This slice runs the frames of the first base-frame section (track,
-densify, map); section boundaries arrive in a later slice.
+The CLI (`python -m vtgaussian_slam_tpu_torch <config.py>`) runs online
+SLAM over the synthetic, Replica, TUM and ScanNet configs across section
+boundaries and writes `params_ls.npy` and `eval/` as the JAX package's
+does; ScanNet++ odometry, mesh evaluation, two-class binning and the
+multi-GPU engine are not ported yet.
 """
 import torch
 

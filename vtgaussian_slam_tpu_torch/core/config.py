@@ -3,11 +3,29 @@
 The port's own copy of `vtgaussian_slam_tpu/core/config.py`: scene configs
 are Python modules exporting a nested `config` dict (configs/), and this
 backfills the same runtime defaults as the JAX engine so both read the
-same files.
+same files. `auto_pair_budget` sizes the rasterizer's per-tile pair budget
+from a map's density, for the engine and for the evaluation renders.
 """
 from __future__ import annotations
 
 import copy
+
+
+def auto_pair_budget(n_active: int, n_tiles: int, span_cap: int, base: int,
+                     tile_cap_entries: int = 1 << 23, hard_cap: int = 8192,
+                     boost: int = 1) -> int:
+    """Power-of-two `max_pairs_per_tile` for the current section density:
+    about 1/12 of the average per-tile pair count (1/4 on images of fewer
+    than 64 tiles) times `boost`, doubled up from `base`, capped so the
+    record buffers stay bounded."""
+    divisor = 12 if n_tiles >= 64 else 4
+    need = boost * (n_active * span_cap * span_cap) // (
+        divisor * max(n_tiles, 1))
+    cap = max(base, min(hard_cap, tile_cap_entries // max(n_tiles, 1)))
+    mpt = base
+    while mpt < need and mpt * 2 <= cap:
+        mpt *= 2
+    return mpt
 
 
 def prepare_config(config: dict) -> dict:

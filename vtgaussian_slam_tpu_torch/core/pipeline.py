@@ -38,6 +38,11 @@ route but not the Gaussians: sections are seeded with (N, 1) log-scales
 either way. The pair budget follows `auto_pair_budget` times a boost that
 the measured truncation harm (map_cache.trunc_probe) drives.
 
+Frames come from the real-data loaders or the synthetic generator
+(`build_dataset`) through a `FramePrefetcher`, whose threads decode the
+next frames while the engine works on the current one.
+`export_params_ls` gives the reference's params_ls.
+
 Random draws (mapping keyframes, the 1600 selection pixels) come from
 host `torch.Generator`s; tests inject the JAX engine's draws through the
 `map_draws` and `overlap_ranks` hooks. The engine runs on CUDA unless the
@@ -52,14 +57,17 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..datasets import get_dataset
-from ..eval.metrics import calc_psnr, evaluate_ate
+from ..datasets import get_dataset, load_dataset_config
+from ..datasets.prefetch import FramePrefetcher
+from ..eval.evaluate import eval_pair_budget, frame_metrics
+from ..eval.metrics import evaluate_ate
 from ..models import gaussians as G
 from ..ops import geometry as geo
 from ..ops.camera import setup_camera
 from ..ops.image import geometric_edge_mask, resize_mask_nearest
 from ..utils.common import resolve_device
-from .config import prepare_config, separate_densification_res
+from .config import (auto_pair_budget, prepare_config,
+                     separate_densification_res)
 from .densify import (base_frame_pointcloud, densify_from_pixels,
                       densify_nonpresence, first_frame_pointcloud)
 from .losses import Frame, LossConfig, render_slam
@@ -74,53 +82,27 @@ from .tracking import (TrackingConfig, init_track_state, track_frame,
                        track_frame_cached)
 
 # cumulative seconds in `stats` that `frame_times[t]["timers"]` splits per
-# frame (the boundary work and the paging)
+# frame: the boundary work, the paging, and the frame's load and staging
 TIMER_KEYS = ("t_select", "t_sel_pool", "t_sel_walk", "t_prefetch",
               "t_track_prep", "t_track_cache", "t_spawn", "t_map_select",
               "t_global_concat", "t_global_cache", "t_map_store", "t_page",
-              "t_page_in", "t_page_fin")
+              "t_page_in", "t_page_fin", "t_dataset", "t_stage")
 
 
-def auto_pair_budget(n_active: int, n_tiles: int, span_cap: int, base: int,
-                     tile_cap_entries: int = 1 << 23, hard_cap: int = 8192,
-                     boost: int = 1) -> int:
-    """Power-of-two `max_pairs_per_tile` for the current section density:
-    about 1/12 of the average per-tile pair count (1/4 on images of fewer
-    than 64 tiles) times `boost`, doubled up from `base`, capped so the
-    record buffers stay bounded."""
-    divisor = 12 if n_tiles >= 64 else 4
-    need = boost * (n_active * span_cap * span_cap) // (
-        divisor * max(n_tiles, 1))
-    cap = max(base, min(hard_cap, tile_cap_entries // max(n_tiles, 1)))
-    mpt = base
-    while mpt < need and mpt * 2 <= cap:
-        mpt *= 2
-    return mpt
-
-
-def eval_backend_kwargs(n: int, height: int, width: int, tpu_cfg: dict) -> dict:
-    """Rasterizer kwargs for evaluation renders: the full average per-tile
-    pair count, memory-capped (eval/evaluate.py of the JAX package)."""
-    span = tpu_cfg.get("span_cap", 3)
-    base = max(tpu_cfg.get("max_pairs_per_tile", 512), 512)
-    tiles = (-(-width // 16)) * (-(-height // 16))
-    mpt = auto_pair_budget(n, tiles, span, base, hard_cap=16384)
-    cap = max(base, min(16384, (1 << 23) // max(tiles, 1)))
-    need = n * span * span // max(tiles, 1)
-    while mpt < need and mpt * 2 <= cap:
-        mpt *= 2
-    return {"max_pairs_per_tile": mpt, "span_cap": span,
-            "chunk": tpu_cfg.get("blend_chunk", 128)}
+def gradslam_config(data_cfg: dict) -> dict:
+    """The dataset's gradslam config: the YAML that `gradslam_data_cfg`
+    names, else just the config's `dataset_name`."""
+    if "gradslam_data_cfg" not in data_cfg:
+        return {"dataset_name": data_cfg["dataset_name"]}
+    return load_dataset_config(data_cfg["gradslam_data_cfg"])
 
 
 def build_dataset(config: dict, densify_res: bool = False):
+    """The dataset of a config, at the tracking resolution or at the
+    densification stream's; shared by the engine and eval_mode."""
     config = prepare_config(config)
     data_cfg = config["data"]
-    if "gradslam_data_cfg" in data_cfg:
-        raise NotImplementedError(
-            "real-data loaders arrive in a later port slice; configs with "
-            "data.dataset_name='synthetic' run now")
-    gradslam_cfg = {"dataset_name": data_cfg["dataset_name"]}
+    gradslam_cfg = gradslam_config(data_cfg)
     if "synthetic" in data_cfg:
         gradslam_cfg["synthetic"] = data_cfg["synthetic"]
     hw_key = "densification_image" if densify_res else "desired_image"
@@ -130,7 +112,9 @@ def build_dataset(config: dict, densify_res: bool = False):
         start=data_cfg.get("start", 0), end=data_cfg.get("end", -1),
         stride=data_cfg.get("stride", 1),
         desired_height=data_cfg[f"{hw_key}_height"],
-        desired_width=data_cfg[f"{hw_key}_width"], relative_pose=True)
+        desired_width=data_cfg[f"{hw_key}_width"], relative_pose=True,
+        ignore_bad=data_cfg["ignore_bad"],
+        use_train_split=data_cfg["use_train_split"])
 
 
 class BaseframeStore:
@@ -210,16 +194,20 @@ class VTGaussianSLAM:
         if cfg["tracking"].get("multiavg", False):
             raise NotImplementedError("multiavg pose propagation")
 
-        self.dataset_name = data_cfg.get("dataset_name", "")
+        self.dataset_name = gradslam_config(data_cfg)["dataset_name"]
         if self.dataset_name == "synthetic" and cfg.get("selection_style"):
+            # a synthetic proxy runs its scene family's selection
             self.dataset_name = cfg["selection_style"]
         if self.dataset_name == "scannetpp":
             raise NotImplementedError("ScanNet++ odometry: later slice")
 
-        self.dataset = build_dataset(cfg)
+        lookahead = tpu.get("prefetch", 2)
+        self.dataset = FramePrefetcher(build_dataset(cfg), lookahead=lookahead)
         self.sep_densify = separate_densification_res(cfg)
-        self.densify_dataset = (build_dataset(cfg, densify_res=True)
-                                if self.sep_densify else None)
+        self.densify_dataset = (
+            FramePrefetcher(build_dataset(cfg, densify_res=True),
+                            lookahead=lookahead)
+            if self.sep_densify else None)
         self.num_frames = data_cfg.get("num_frames", -1)
         if self.num_frames == -1:
             self.num_frames = len(self.dataset)
@@ -291,6 +279,7 @@ class VTGaussianSLAM:
         self._page_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self.frame_times: dict[int, dict] = {}
+        self.frames_done = 0    # frames 0 .. frames_done - 1 processed
         self.stats = {
             "tracking_iter_time_sum": 0.0, "tracking_iter_count": 0,
             "tracking_frame_time_sum": 0.0, "tracking_frame_count": 0,
@@ -309,11 +298,17 @@ class VTGaussianSLAM:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _upload(self, x_np) -> torch.Tensor:
+        """A host array as a float32 tensor on the device; to a card
+        through pinned memory without waiting for the stream."""
+        x = torch.from_numpy(np.ascontiguousarray(x_np, np.float32))
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
     def _stage(self, color_np, depth_np) -> Frame:
-        color = torch.as_tensor(np.asarray(color_np, np.float32),
-                                device=self.device)
-        depth = torch.as_tensor(np.asarray(depth_np, np.float32),
-                                device=self.device)
+        color = self._upload(color_np)
+        depth = self._upload(depth_np)
         return Frame(color=color.permute(2, 0, 1) / 255.0,
                      depth=depth.permute(2, 0, 1).contiguous())
 
@@ -934,6 +929,7 @@ class VTGaussianSLAM:
     def process_frame_zero(self):
         """Frame 0: no tracking; register base frame 0 and map the freshly
         initialized section."""
+        before = {k: self.stats[k] for k in TIMER_KEYS}
         t0 = time.time()
         self.baseframes.append(0, self._frame0.depth[0], self.traj.quats[0],
                                self.traj.trans[0])
@@ -941,17 +937,25 @@ class VTGaussianSLAM:
         if self.config["mapping"]["num_iters"] > 0:
             self._map(0, self._frame0)
         self._sync()
-        self.frame_times[0] = {"track": 0.0, "spawn": 0.0, "densify": 0.0,
-                               "map": time.time() - t0, "timers": {}}
+        self.frame_times[0] = {
+            "track": 0.0, "spawn": 0.0, "densify": 0.0,
+            "map": time.time() - t0,
+            "timers": {k: self.stats[k] - before[k] for k in TIMER_KEYS
+                       if self.stats[k] != before[k]}}
+        self.frames_done = max(self.frames_done, 1)
 
     def process_frame(self, t: int):
         if t == 0:
             return self.process_frame_zero()
         cfg = self.config
         before = {k: self.stats[k] for k in TIMER_KEYS}
+        t0 = time.time()
         color_np, depth_np, _, gt_pose = self.dataset[t]
+        self.stats["t_dataset"] += time.time() - t0
         self._remember_depth(t, np.asarray(depth_np)[..., 0].astype(np.float32))
+        t0 = time.time()
         frame = self._stage(color_np, depth_np)
+        self.stats["t_stage"] += time.time() - t0
         gt_w2c = np.linalg.inv(np.asarray(gt_pose, np.float64))
         self.gt_w2c.append(gt_w2c)
         bf_idx = t // self.bfe
@@ -1006,15 +1010,38 @@ class VTGaussianSLAM:
         times["timers"] = {k: self.stats[k] - before[k] for k in TIMER_KEYS
                            if self.stats[k] != before[k]}
         self.frame_times[t] = times
+        self.frames_done = max(self.frames_done, t + 1)
 
-    def run(self, num_frames: int | None = None):
-        """Frames 0 .. min(num_frames, the sequence) - 1."""
+    def run(self, num_frames: int | None = None,
+            on_frame: Callable[[int], None] | None = None):
+        """Frames 0 .. min(num_frames, the sequence) - 1; `on_frame(t)`
+        after each."""
         n = min(num_frames or self.num_frames, self.num_frames)
-        self.process_frame_zero()
-        for t in range(1, n):
+        for t in range(n):
             self.process_frame(t)
+            if on_frame is not None:
+                on_frame(t)
         self._page_cold_finish()
         return self
+
+    def export_params_ls(self) -> list[dict]:
+        """One reference-format params dict per section, each with the
+        trajectory of the frames processed (params_ls.npy). A section in
+        host memory is exported from its host copy once its page-out has
+        landed; none is paged back in."""
+        self._page_cold_finish()
+        n = self.frames_done or self.num_frames
+        traj = G.CameraTrajectory(quats=self.traj.quats[:n],
+                                  trans=self.traj.trans[:n])
+        return [G.section_to_numpy_params(
+            self.host_section(i) if i in self._paged else sec, traj)
+            for i, sec in enumerate(self.sections)]
+
+    def close(self):
+        """Stop the frame prefetchers' threads."""
+        self.dataset.close()
+        if self.densify_dataset is not None:
+            self.densify_dataset.close()
 
     # ------------------------------------------------------------------
     # Section paging: sections outside the hot set move to pinned host
@@ -1161,18 +1188,12 @@ class VTGaussianSLAM:
         computes them."""
         color_np, depth_np, _, _ = self.dataset[t]
         sec = self._resident(t // self.bfe)
-        bk = eval_backend_kwargs(sec.n_active, self.cam.height, self.cam.width,
-                                 self.config["tpu"])
+        bk = eval_pair_budget(sec.n_active, self.cam.height, self.cam.width,
+                              self.config["tpu"])
         r = render_slam(sec.params, sec.active_mask(), self.traj.quats[t],
                         self.traj.trans[t], self.cam, bk)
-        gt_im = np.transpose(color_np, (2, 0, 1)) / 255.0
-        gt_depth = np.transpose(depth_np, (2, 0, 1))
-        valid = gt_depth > 0
-        im = r.im.cpu().numpy()
-        psnr = float(calc_psnr(im * valid, gt_im * valid).mean())
-        diff = r.depth.cpu().numpy() * valid - gt_depth
-        l1 = float((np.abs(diff) * valid).sum() / max(valid.sum(), 1))
-        return psnr, l1
+        m = frame_metrics(r, color_np, depth_np, with_ssim=False)
+        return m["psnr"], m["l1"]
 
     def ate(self, num_frames: int) -> float:
         """Mean translational error (Horn-aligned) over frames processed."""
@@ -1183,3 +1204,11 @@ class VTGaussianSLAM:
             est.append(w2c.detach().cpu().numpy().astype(np.float64))
         return evaluate_ate([np.linalg.inv(x) for x in self.gt_w2c[:num_frames]],
                             [np.linalg.inv(x) for x in est])
+
+
+def rgbd_slam(config: dict, device="cuda") -> VTGaussianSLAM:
+    """Run online SLAM over a config's whole sequence (the reference's
+    entry point); the engine holds the map and the trajectory."""
+    engine = VTGaussianSLAM(config, device=device)
+    engine.run()
+    return engine

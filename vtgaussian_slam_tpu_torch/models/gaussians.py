@@ -286,7 +286,7 @@ def section_from_numpy_params(p: dict, quantum: int = DEFAULT_CAPACITY_QUANTUM,
     cap = round_capacity(n, quantum)
 
     def pp(x):
-        t = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        t = torch.as_tensor(np.array(x, np.float32), device=device)
         return pad_rows(t, cap - n)
 
     params = GaussianParams(*[pp(p[k]) for k, _ in PARAM_KEYS])
