@@ -55,6 +55,42 @@ Phases (any failure raises and the exit code is non-zero):
      its own config.py copy and from the original, under the guards (PSNR
      > 20 dB, ATE < 5 cm, finite depth L1 and LPIPS); every run with its
      own zeroed launch counts;
+  2f. the engine's remaining single-card features (every sub-phase with
+     its own zeroed launch counts; any failed check exits non-zero):
+     a. resume: phase 2c runs with save_checkpoints (checkpoint_interval 6:
+        a save after frame 5, its seconds printed apart from the frame's
+        split); a checkpoint after frame 9 reads the paged section from
+        pinned host memory (held to its page-out copy to the bit); a fresh
+        engine resumes from frame 5 through `run` and its trajectory,
+        sections and export are held to phase 2c's to the bit, or the first
+        frame and quantity that differ are printed (a failure unless a
+        truncation-probe reading was in flight at the save); load and save
+        seconds, the file's size;
+     b. the progress reports: the room0 proxy for 3 frames with use_wandb
+        on: `events.jsonl`'s record counts per kind against the loops'
+        iteration counts, the progress PSNR beside `evaluate_frame`'s,
+        `t_progress` per frame; without matplotlib one "no matplotlib:
+        panels skipped" note and no emergency params*.npz;
+     c. ScanNet++: `make_config("scannetpp", "proxy")` on synthetic frames at
+        584x876 (densification 1168x1752), use_wandb on, init_err_ratio 0,
+        6 frames: per frame the probe losses, whether the rescue fired
+        (every frame from 2 on), the odometer's relative pose against the
+        ground truth, the running ATE (< 5 cm); then
+        `rgbd_odometry_multi_scale`'s ms per call at 584x876;
+     d. the mesh: `eval_recon` over phase 2c's export at voxel 5/512 m,
+        sdf_trunc 0.04 and the eval_mode budget: voxel dims, state GB, peak
+        allocated memory, integrate ms per frame, extract / clean / write
+        seconds, n_verts / n_faces, the share of pixels the silhouette
+        masked at this budget and at mpt 512; then scored against its own
+        mesh with 20 2D views (accuracy and completion < 3 cm, 2D depth L1
+        < 0.5 cm);
+     e. the dense reference: `api.render` on the tiled route (K4) against
+        `render_dense` over 20000 Gaussians of phase 2c's last section on a
+        128x128 camera (depth and silhouette within 2e-4; rgb parts where
+        depths tie in the binning's key, so it is printed, and held within
+        2e-4 once the depths are spread apart), and on tests/
+        test_rasterizer.py's random scenes; `prune_gaussians` and
+        `densify_split_clone` on those Gaussians give the CPU's counts;
   3. each kernel against its plain PyTorch version on inputs captured from
      the two runs' final states (the track cache and its loss cotangent for
      K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
@@ -63,7 +99,8 @@ Phases (any failure raises and the exit code is non-zero):
      random), with the tolerance stated; K4 also on the generic route's
      records, the input of all its launches but densify's, and on phase
      2e's eval render of phase 2c's last section at its last frame, at the
-     training budget and at the eval_mode budget; K1 and K3 also
+     training budget and at the eval_mode budget, and on phase 2f-c's
+     render of the ScanNet++ proxy at 584x876; K1 and K3 also
      on phase 2c's global binning (the frozen sections and the current
      one, at g_mpt) with the global term's loss cotangent, and K2 also on
      the track cache of phase 2c's last boundary frame, each with that
@@ -94,8 +131,9 @@ Phases (any failure raises and the exit code is non-zero):
      host clock alone and once under `torch.profiler`: the summed device
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
-  4. a `{"kernels": [...]}` line (launches: the sum over the engine runs
-     and phase 2e's evaluations and CLI runs); the card line; and as the
+  4. a `{"kernels": [...]}` line (launches: the sum over the engine runs,
+     phase 2e's evaluations and CLI runs and phase 2f); the card line; and
+     as the
      last line
      `{"ok": true, "device": {...}}`.
 
@@ -119,6 +157,12 @@ TRACK_ITERS = 80      # room0 base1_num_iters
 MAP_ITERS = 100       # room0 mapping num_iters
 BUSY_ITERS = 10       # iterations of each loop under the profiler
 CLI_WORKDIR = os.path.join(REPO, "build", "chip_smoke_cli")
+CKPT_WORKDIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+F_WORKDIR = os.path.join(REPO, "build", "chip_smoke_2f")
+RESUME_FROM = 5       # phase 2c saves after frame 5; 2f-a resumes there
+PROGRESS_FRAMES = 3   # phase 2f-b
+PP_FRAMES = 6         # phase 2f-c: the ScanNet++ proxy
+DENSE_N, DENSE_HW = 20000, 128    # phase 2f-e
 # the JAX package's final numbers on the synthetic configs (PARITY.md,
 # round 5, on a TPU v5e; MS-SSIM from round 2; LPIPS not recorded), and
 # the spread of its recorded runs (rounds 1-5) that the port should land in
@@ -254,6 +298,7 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
     t_run = time.time()
     for t in range(n):
         engine.process_frame(t)
+        engine.maybe_checkpoint(t)
         for i in engine._page_pending:
             if i not in refs:
                 refs[i] = [x.clone() for x in
@@ -289,7 +334,9 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
               f"{r['n']} ({stage(ft)}) | mpt {r['mpt']} g_mpt {r['g_mpt']} | "
               f"probes "
               f"{probes}; boost {r['boost']} | PSNR {psnr:.2f} dB | depth L1 "
-              f"{l1 * 100:.3f} cm | host sections {r['paged']}")
+              f"{l1 * 100:.3f} cm | host sections {r['paged']}"
+              + (f" | checkpoint saved in {ft['checkpoint']:.3f} s (outside "
+                 f"the split)" if "checkpoint" in ft else ""))
         if r["corr"] is not None:
             timers = ", ".join(f"{k} {v:.3f}" for k, v in ft["timers"].items())
             print(f"  boundary: tracking_corr {r['corr'][0]} earliest_corr "
@@ -712,6 +759,500 @@ def busy_line(tag, loop):
           f"{n_launch / BUSY_ITERS:.1f} | top: {top}")
 
 
+def first_difference(eng, ref, ref_params_ls, n):
+    """None when the two engines' trajectories over frames 0..n-1, sections
+    (live rows) and exports are equal to the bit, else (frame or section,
+    quantity)."""
+    import numpy as np
+    for t in range(n):
+        for name, a, b in (("quat", eng.traj.quats, ref.traj.quats),
+                           ("trans", eng.traj.trans, ref.traj.trans)):
+            if not np.array_equal(a[t].cpu().numpy(), b[t].cpu().numpy()):
+                return f"frame {t}", f"pose {name}"
+    if len(eng.sections) != len(ref.sections):
+        return "sections", f"{len(eng.sections)} vs {len(ref.sections)}"
+    got = eng.export_params_ls()
+    for i, (p, q) in enumerate(zip(got, ref_params_ls)):
+        for k in PARAM_KEYS:
+            if p[k].shape != q[k].shape or not np.array_equal(p[k], q[k]):
+                return f"section {i}", k
+    return None
+
+
+def resume_phase(engine3, config3, params_ls3, refs3, wrappers):
+    """2f-a: phase 2c's checkpoint after frame RESUME_FROM, and one written
+    with a section in pinned host memory; a fresh engine resumed through
+    `run` and held to phase 2c's run."""
+    import copy
+    import numpy as np
+    import torch
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.utils.checkpoint import (read_checkpoint,
+                                                            save_checkpoint)
+    tag = "2f-a resume"
+    log = engine3.checkpoint_log
+    assert [c["t"] for c in log] == [RESUME_FROM], log
+    c = log[0]
+    ft = engine3.frame_times[RESUME_FROM]
+    _, meta = read_checkpoint(config3, c["path"])
+    print(f"[{tag}] phase 2c saved frame {RESUME_FROM} in {c['save_s']:.3f} "
+          f"s ({c['bytes'] / 1e6:.1f} MB, {meta['n_sections']} sections; a "
+          f"probe reading in flight: {c['harm_in_flight']}); the frame's own "
+          f"split track {ft['track']:.3f} s densify {ft['densify']:.3f} s map "
+          f"{ft['map']:.3f} s")
+    # phase 2c's paging check paged a section back in: page the cold ones
+    # out again, as after the run's last frame
+    engine3._page_cold_sections({(BOUNDARY_FRAMES - 1) // engine3.bfe}
+                                | set(engine3.fixed_section_ids or ()))
+    engine3._page_cold_finish()
+    paged = [i for i in engine3.paged_sections() if i in refs3]
+    assert paged, engine3.paged_sections()
+    t_last = BOUNDARY_FRAMES - 1
+    t0 = time.time()
+    path = save_checkpoint(engine3, t_last)
+    save_s = time.time() - t0
+    data, _ = read_checkpoint(config3, path)
+    for i in paged:
+        n = engine3.sections[i].n_active
+        for k, ref in zip(PARAM_KEYS[:5], refs3[i][:5]):
+            assert np.array_equal(data[f"sec{i}_{k}"], ref[:n].cpu().numpy()), k
+    print(f"[{tag}] a checkpoint after frame {t_last} with section(s) "
+          f"{paged} in pinned host memory: {save_s:.3f} s, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB; the paged sections' arrays "
+          f"equal to the bit to their page-out copies")
+
+    cfg = copy.deepcopy(config3)
+    cfg.update(save_checkpoints=False, load_checkpoint=True,
+               checkpoint_time_idx=RESUME_FROM)
+    zeroed(wrappers)
+    t0 = time.time()
+    eng = VTGaussianSLAM(cfg, device="cuda")
+    init_s = time.time() - t0
+    t0 = time.time()
+    eng.run(BOUNDARY_FRAMES)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = read_counts(wrappers)
+    load_s = eng.checkpoint_log[0]["load_s"]
+    diff = first_difference(eng, engine3, params_ls3, BOUNDARY_FRAMES)
+    ate = eng.ate(BOUNDARY_FRAMES)
+    print(f"[{tag}] a fresh engine ({init_s:.2f} s) resumed from frame "
+          f"{RESUME_FROM} through run: load {load_s:.3f} s, frames "
+          f"{RESUME_FROM + 1}-{t_last} in {run_s:.2f} s, sections "
+          f"{[s.n_active for s in eng.sections]}, paged "
+          f"{eng.paged_sections()}, ATE {ate * 100:.4f} cm (phase 2c "
+          f"{engine3.ate(BOUNDARY_FRAMES) * 100:.4f}); against phase 2c's "
+          f"run: " + ("equal to the bit (trajectory, sections, export)"
+                      if diff is None else f"parts first at {diff[0]}, "
+                      f"{diff[1]}") + f" | launches {launches}")
+    if diff is not None and not c["harm_in_flight"]:
+        raise AssertionError(f"[{tag}] the resumed run parts from phase 2c "
+                             f"with no probe reading in flight: {diff}")
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")), launches
+    assert ate < 0.05, ate
+    return launches
+
+
+def progress_phase(wrappers):
+    """2f-b: the room0 proxy with use_wandb on, as make_config ships it:
+    events.jsonl against the iteration counts, the progress PSNR beside
+    evaluate_frame's, t_progress per frame."""
+    import contextlib
+    import glob
+    import shutil
+    import torch
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    tag = "2f-b progress"
+    cfg = room0_proxy_config()
+    cfg["use_wandb"] = True
+    cfg["workdir"] = os.path.join(F_WORKDIR, "progress")
+    shutil.rmtree(cfg["workdir"], ignore_errors=True)
+    zeroed(wrappers)
+    tee = Tee(sys.stdout)
+    eng = VTGaussianSLAM(cfg, device="cuda")
+    with contextlib.redirect_stdout(tee):
+        eng.run(PROGRESS_FRAMES)
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    out = tee.text()
+    rdir = eng.run_dir()
+    recs = [json.loads(x) for x in
+            open(os.path.join(rdir, "events.jsonl")).read().splitlines()]
+    n = lambda key: sum(1 for r in recs if key in r)
+    counts = {"init": n("event"),
+              "tracking": n("Per Iteration Tracking/Loss"),
+              "mapping": n("Per Iteration Mapping/Loss"),
+              "progress": n("Tracking/PSNR"),
+              "final": n("Final Stats/step")}
+    want = {"init": 1, "tracking": eng.stats["tracking_loop_iters"],
+            "mapping": eng.stats["mapping_loop_iters"],
+            "progress": PROGRESS_FRAMES - 1, "final": 1}
+    print(f"[{tag}] events.jsonl records {counts}; the loops' iterations "
+          f"and frames {want}")
+    assert counts == want, (counts, want)
+    prog = [r for r in recs if "Tracking/PSNR" in r]
+    for r in prog:
+        t = int(r["Tracking/step"])
+        psnr, l1 = eng.evaluate_frame(t)
+        print(f"[{tag} frame {t}] progress PSNR {r['Tracking/PSNR']:.2f} dB "
+              f"(presence-masked at the tracking silhouette 0.999), depth "
+              f"RMSE {r['Tracking/Depth RMSE'] * 100:.3f} cm, pose error "
+              f"{r['Tracking/Latest Pose Error'] * 100:.3f} cm | "
+              f"evaluate_frame PSNR {psnr:.2f} dB | t_progress "
+              f"{eng.frame_times[t]['timers']['t_progress']:.3f} s")
+    notes = out.count("no matplotlib: panels skipped")
+    plots = os.path.isdir(os.path.join(rdir, "plots"))
+    dumps = glob.glob(os.path.join(rdir, "params*.npz"))
+    print(f"[{tag}] 'no matplotlib: panels skipped' printed {notes} time(s); "
+          f"plots/ written {plots}; emergency params*.npz {len(dumps)} | "
+          f"launches {launches}")
+    assert not dumps and "Failed to evaluate trajectory" not in out
+    assert (notes == 1 and not plots) or (notes == 0 and plots)
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")), launches
+    eng.close()
+    return launches
+
+
+def scannetpp_config():
+    from configs.common import make_config
+    cfg = make_config("scannetpp", "proxy", seed=2)
+    cfg["init_err_ratio"] = 0    # the rescue and the odometer every frame
+    cfg["workdir"] = os.path.join(F_WORKDIR, "scannetpp")
+    cfg["data"] = dict(
+        dataset_name="synthetic",
+        synthetic=dict(num_frames=40, height=584, width=876, seed=0,
+                       motion_scale=0.05),
+        sequence="proxy", desired_image_height=584, desired_image_width=876,
+        densification_image_height=1168, densification_image_width=1752,
+        start=0, end=-1, stride=1, num_frames=-1)
+    return cfg
+
+
+def scannetpp_phase(wrappers):
+    """2f-c: the ScanNet++ proxy, use_wandb on, init_err_ratio 0: the probe,
+    the rescue and the odometer per frame against the synthetic ground
+    truth, and the odometer's time at 584x876."""
+    import shutil
+    import numpy as np
+    import torch
+    from vtgaussian_slam_tpu_torch.core.odometry import \
+        rgbd_odometry_multi_scale
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    tag = "2f-c scannetpp"
+    cfg = scannetpp_config()
+    shutil.rmtree(cfg["workdir"], ignore_errors=True)
+    zeroed(wrappers)
+    t0 = time.time()
+    eng = VTGaussianSLAM(cfg, device="cuda")
+    assert eng.dataset_name == "scannetpp" and eng.odometer is not None
+    init_s = time.time() - t0
+    t0 = time.time()
+    eng.run(PP_FRAMES)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = read_counts(wrappers)
+    tr = cfg["tracking"]
+    print(f"[{tag}] {eng.cam.height}x{eng.cam.width} (densification "
+          f"{eng.densify_cam.height}x{eng.densify_cam.width}), {PP_FRAMES} "
+          f"frames in {run_s:.2f} s (init {init_s:.2f} s), tracking "
+          f"{tr['num_iters']} iterations (x2 when rescued), mapping "
+          f"{cfg['mapping']['num_iters']} | launches {launches}")
+    poses = [np.asarray(eng.dataset[t][3], np.float64)
+             for t in range(PP_FRAMES)]
+    errs = []
+    for r in eng.rescue_log:
+        t = r["t"]
+        ft = eng.frame_times[t]
+        line = (f"[{tag} frame {t}] probe im {r['probe_im']:.2f} depth "
+                f"{r['probe_depth']:.2f} | rescue {r['fired']}, "
+                f"{r['num_iters']} iterations")
+        if r["odometer_rel"] is not None:
+            rel = np.asarray(r["odometer_rel"], np.float64)
+            gt = np.linalg.inv(poses[t - 1]) @ poses[t]
+            t_err = float(np.linalg.norm(rel[:3, 3] - gt[:3, 3]))
+            dR = rel[:3, :3].T @ gt[:3, :3]
+            ang = float(np.degrees(np.arccos(np.clip(
+                (np.trace(dR) - 1) / 2, -1, 1))))
+            errs.append(t_err)
+            line += (f" | odometer vs ground truth {t_err * 100:.3f} cm, "
+                     f"{ang:.3f} deg (motion "
+                     f"{np.linalg.norm(gt[:3, 3]) * 100:.3f} cm)")
+        psnr, l1 = eng.evaluate_frame(t)
+        line += (f" | track {ft['track']:.3f} s map {ft['map']:.3f} s | "
+                 f"ATE over 0..{t} {eng.ate(t + 1) * 100:.4f} cm | PSNR "
+                 f"{psnr:.2f} dB, depth L1 {l1 * 100:.3f} cm")
+        print(line)
+    fired = [r["t"] for r in eng.rescue_log if r["fired"]]
+    ate = eng.ate(PP_FRAMES)
+    assert fired == list(range(2, PP_FRAMES)), fired
+    assert len(errs) == len(fired) and max(errs) < 0.05, errs
+    assert ate < 0.05, ate
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")), launches
+
+    # the odometer's own time at this size: frames 0 -> 1
+    d0 = eng.odometer._depth(eng.dataset[0][1])
+    g0 = eng.odometer._gray(eng.dataset[0][0])
+    d1 = eng.odometer._depth(eng.dataset[1][1])
+    g1 = eng.odometer._gray(eng.dataset[1][0])
+    ms = event_ms(lambda: rgbd_odometry_multi_scale(
+        d0, g0, d1, g1, eng.odometer.intrinsics, hybrid=False))
+    ms_h = event_ms(lambda: rgbd_odometry_multi_scale(
+        d0, g0, d1, g1, eng.odometer.intrinsics, hybrid=True))
+    print(f"[{tag}] ATE {ate * 100:.4f} cm over {PP_FRAMES} frames (bound < 5 "
+          f"cm); rescued frames {fired}; rgbd_odometry_multi_scale at "
+          f"{eng.cam.height}x{eng.cam.width}: point-to-plane {ms:.2f} ms, "
+          f"hybrid {ms_h:.2f} ms per call (CUDA events, median of 10)")
+    # the probe's render inputs at the last frame, for phase 3's K4
+    t = PP_FRAMES - 1
+    sec = eng.sections[t // eng.bfe]
+    probe = (sec, eng.traj.quats[t].clone(), eng.traj.trans[t].clone(),
+             eng.cam, dict(eng.backend_kwargs))
+    eng.close()
+    return launches, probe
+
+
+def masked_share(params_ls, dataset, n, bfe, bk, sil_thres=0.5):
+    """The share of pixels whose silhouette is at most `sil_thres` in the
+    renders of frames 0..n-1 at the budget `bk`."""
+    import numpy as np
+    from vtgaussian_slam_tpu_torch.eval.evaluate import \
+        _load_sections_and_renderer
+    from vtgaussian_slam_tpu_torch.ops.camera import setup_camera
+    secs, traj, render = _load_sections_and_renderer(params_ls, bk, "cuda")
+    color0, _, K, _ = dataset[0]
+    cam = setup_camera(color0.shape[1], color0.shape[0], np.asarray(K)[:3, :3])
+    out = []
+    for t in range(n):
+        s = secs[min(t // bfe, len(secs) - 1)]
+        r = render(s.params, s.active_mask(), traj.quats[t], traj.trans[t],
+                   cam)
+        out.append(float((r.silhouette <= sil_thres).float().mean()))
+    return float(np.mean(out))
+
+
+def mesh_phase(engine3, params_ls3, bk_train3, bk_eval3, wrappers):
+    """2f-d: eval_recon over phase 2c's export at the reference's voxel and
+    truncation, at the eval_mode budget; then scored against its own mesh."""
+    import shutil
+    import torch
+    from vtgaussian_slam_tpu_torch.eval.evaluate import eval_recon
+    tag = "2f-d mesh"
+    wdir = os.path.join(F_WORKDIR, "recon")
+    shutil.rmtree(wdir, ignore_errors=True)
+    kw = dict(eval_every=1, baseframe_every=engine3.bfe,
+              voxel_length=5.0 / 512, sdf_trunc=0.04, device="cuda")
+    zeroed(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = eval_recon(engine3.dataset, params_ls3, engine3.frames_done,
+                     os.path.join(wdir, "mesh"), backend_kwargs=bk_eval3,
+                     **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(wrappers)
+    st = out["stats"]
+    share_512 = masked_share(params_ls3, engine3.dataset, engine3.frames_done,
+                             engine3.bfe, bk_train3)
+    print(f"[{tag}] eval_recon over {engine3.frames_done} frames at mpt "
+          f"{bk_eval3['max_pairs_per_tile']}, voxel 5/512 m, sdf_trunc 0.04: "
+          f"voxel dims {st['voxel_dims']}, state {st['state_bytes'] / 1e9:.3f} "
+          f"GB, peak allocated {peak / 1e9:.3f} GB | render "
+          f"{st['render_s']:.3f} s, integrate {st['integrate_ms_per_frame']:.2f}"
+          f" ms per frame, extract {st['extract_s']:.3f} s, clean "
+          f"{st['clean_s']:.3f} s, PLY write {st['write_s']:.3f} s, "
+          f"{wall:.2f} s in all | n_verts {out['n_verts']}, n_faces "
+          f"{out['n_faces']} | silhouette-masked pixels "
+          f"{st['masked_share']:.4f} at this budget, {share_512:.4f} at mpt "
+          f"{bk_train3['max_pairs_per_tile']} | launches {launches}")
+    assert out["n_faces"] > 1000, out
+    assert launches["K4"] == engine3.frames_done, launches
+    zeroed(wrappers)
+    t0 = time.time()
+    scored = eval_recon(engine3.dataset, params_ls3, engine3.frames_done,
+                        os.path.join(wdir, "self"), backend_kwargs=bk_eval3,
+                        gt_mesh_path=out["mesh_path"], n_2d_views=20, **kw)
+    torch.cuda.synchronize()
+    launches2 = read_counts(wrappers)
+    print(f"[{tag}] against its own mesh: accuracy "
+          f"{scored['accuracy_cm']:.4f} cm, completion "
+          f"{scored['completion_cm']:.4f} cm (bound < 3 cm), 2D depth L1 of 20 "
+          f"views {scored['depth l1']:.4f} cm | {time.time() - t0:.2f} s | "
+          f"launches {launches2}")
+    assert scored["accuracy_cm"] < 3.0 and scored["completion_cm"] < 3.0
+    assert scored["depth l1"] < 0.5, scored
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def dense_phase(params_ls3, engine3, wrappers):
+    """2f-e: `api.render` on the tiled route (K4) against `render_dense` on
+    a 128x128 camera over DENSE_N Gaussians of phase 2c's last section, and
+    refinement's counts on the card against the CPU's."""
+    import numpy as np
+    import torch
+    from vtgaussian_slam_tpu_torch.core.losses import _slam_inputs
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
+    from vtgaussian_slam_tpu_torch.models import refinement as R
+    from vtgaussian_slam_tpu_torch.ops.camera import Camera
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import api
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.projection import \
+        project_gaussians
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.tiled import tile_records
+    tag = "2f-e dense"
+    sec, traj = G.section_from_numpy_params(params_ls3[-1], device="cuda")
+    t = BOUNDARY_FRAMES - 1
+    means_cam, quats, scales, opac, colors6 = _slam_inputs(
+        sec.params, traj.quats[t], traj.trans[t])
+    n = sec.n_active
+    c0 = engine3.cam
+    s = DENSE_HW / c0.width
+    cam = Camera(height=DENSE_HW, width=DENSE_HW, fx=c0.fx * s, fy=c0.fy * s,
+                 cx=DENSE_HW / 2, cy=DENSE_HW / 2)
+    z = means_cam[:n, 2]
+    u = cam.fx * means_cam[:n, 0] / z + cam.cx
+    v = cam.fy * means_cam[:n, 1] / z + cam.cy
+    seen = torch.nonzero((z > 0.2) & (u >= 0) & (u < DENSE_HW) & (v >= 0)
+                         & (v < DENSE_HW)).flatten()
+    pick = seen[torch.randperm(len(seen), generator=torch.Generator()
+                               .manual_seed(0))[:DENSE_N].to(seen.device)]
+    # rgb, depth and silhouette: the depth and silhouette channels do not
+    # depend on the order of Gaussians whose depths tie in the binning's
+    # 21-bit log-depth key (the tiled route blends those in slot order,
+    # the dense one in depth order), the rgb channels do
+    colors = colors6[:, :5]
+    args = [x[pick].contiguous() for x in (means_cam, quats, scales, opac,
+                                           colors)]
+    mpt = 16384
+    _, counts, _ = tile_records(*args, cam, span_cap=3,
+                                max_pairs_per_tile=mpt)
+    zeroed(wrappers)
+    with torch.no_grad():
+        tiled = api.render(*args, cam, backend="tiled", span_cap=3,
+                           max_pairs_per_tile=mpt)
+        dense = api.render(*args, cam, backend="dense")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    diff = (tiled.image - dense.image).abs()
+    err_ds = float(diff[3:].max())
+    err_rgb = float(diff[:3].max())
+    share_rgb = float((diff[:3].amax(0) > 2e-4).float().mean())
+    same_radii = torch.equal(tiled.radii, dense.radii)
+    print(f"[{tag}] {len(pick)} Gaussians of phase 2c's section "
+          f"{len(params_ls3) - 1} ({len(seen)} in view) at frame {t}'s pose, "
+          f"{DENSE_HW}x{DENSE_HW}: api.render tiled (K4, mpt {mpt}, fullest "
+          f"tile {int(counts.max())} pairs) against render_dense: depth and "
+          f"silhouette max |diff| {err_ds:.2e} (bound 2e-4, tests/"
+          f"test_rasterizer.py's), radii equal {same_radii}; rgb max |diff| "
+          f"{err_rgb:.2e}, {share_rgb:.4f} of pixels above 2e-4 (depth ties "
+          f"blended in another order) | launches {launches}")
+    assert int(counts.max()) < mpt and err_ds <= 2e-4 and same_radii
+    # the same Gaussians moved along their rays (x, y, z scaled alike, so
+    # the screen positions stay), log-depth raised by 2e-5 per depth rank,
+    # 2.6 steps of the key's 16.1181 / 2^21: no two keys tie, and every
+    # channel agrees
+    rank = torch.argsort(torch.argsort(args[0][:, 2])).float()
+    spread = [args[0] * torch.exp(2e-5 * rank)[:, None]] + args[1:]
+    with torch.no_grad():
+        a = api.render(*spread, cam, span_cap=3, max_pairs_per_tile=mpt)
+        b = api.render(*spread, cam, backend="dense")
+    err_spread = float((a.image - b.image).abs().max())
+    print(f"[{tag}] the same Gaussians with their depths spread apart (no "
+          f"ties in the key): tiled against dense max |diff| "
+          f"{err_spread:.2e} over rgb, depth and silhouette (bound 2e-4)")
+    assert err_spread <= 2e-4
+    assert launches["K4"] == 1, launches
+    # tests/test_rasterizer.py's random scenes (depths spread over 1-4 m),
+    # every channel
+    for seed in (0, 1):
+        rng = np.random.default_rng(seed)
+        n = 200
+        zz = rng.uniform(1.0, 4.0, n)
+        uu = rng.uniform(4.0, DENSE_HW - 4.0, n)
+        vv = rng.uniform(4.0, DENSE_HW - 4.0, n)
+        scene = [np.stack([(uu - cam.cx) / cam.fx * zz,
+                           (vv - cam.cy) / cam.fy * zz, zz], -1),
+                 rng.normal(size=(n, 4)),
+                 np.exp(rng.uniform(-3.5, -2.5, (n, 3))),
+                 1 / (1 + np.exp(-rng.normal(size=n))),
+                 rng.uniform(0, 1, (n, 3))]
+        scene = [torch.as_tensor(x, dtype=torch.float32, device="cuda")
+                 for x in scene]
+        # tiles enough for the widest footprint: the binning cuts a
+        # Gaussian's rect at span_cap tiles a side
+        rmax = float(project_gaussians(*scene[:4], cam).radius.max())
+        span = int(np.ceil((2 * rmax + 2) / 16)) + 1
+        with torch.no_grad():
+            a = api.render(*scene, cam, max_pairs_per_tile=1024,
+                           span_cap=span)
+            b = api.render(*scene, cam, backend="dense")
+        e = float((a.image - b.image).abs().max())
+        print(f"[{tag}] random scene seed {seed} ({n} anisotropic Gaussians, "
+              f"1-4 m, span_cap {span}): tiled against dense max |diff| "
+              f"{e:.2e} over rgb "
+              f"(bound 2e-4), radii equal {torch.equal(a.radii, b.radii)}")
+        assert e <= 2e-4 and torch.equal(a.radii, b.radii)
+
+    # refinement on that subset, on the card and on the CPU
+    sub = {k: params_ls3[-1][k][pick.cpu().numpy()] for k in PARAM_KEYS[:5]}
+    sub.update(cam_unnorm_rots=params_ls3[-1]["cam_unnorm_rots"],
+               cam_trans=params_ls3[-1]["cam_trans"])
+    rng = np.random.default_rng(0)
+    accum = rng.uniform(0, 0.4, len(pick)).astype(np.float32)
+    # prune below the subset's median opacity: about half goes
+    op_med = float(np.median(1 / (1 + np.exp(-sub["logit_opacities"]))))
+    prune = dict(start_after=0, remove_big_after=0, stop_after=20,
+                 prune_every=20, removal_opacity_threshold=op_med,
+                 final_removal_opacity_threshold=op_med,
+                 reset_opacities=False, reset_opacities_every=500)
+    dens = dict(start_after=0, remove_big_after=10000, stop_after=5000,
+                densify_every=1, grad_thresh=0.3, num_to_split_into=2,
+                removal_opacity_threshold=0.005,
+                final_removal_opacity_threshold=0.005,
+                reset_opacities_every=3000)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        s_, _ = G.section_from_numpy_params(sub, device=dev)
+        s_.vars.scene_radius = sec.vars.scene_radius
+        cap = s_.capacity
+        a = torch.zeros(cap, device=dev)
+        a[:len(pick)] = torch.as_tensor(accum, device=dev)
+        s_ = s_.replace(vars=G.GaussianVars(
+            s_.vars.max_2d_radius, a, (a > 0).float(), s_.vars.timestep,
+            s_.vars.scene_radius))
+        noise = torch.randn((2, cap, 3), generator=torch.Generator()
+                            .manual_seed(1))
+        pruned, _ = R.prune_gaussians(s_, None, 20, prune)
+        grown, _ = R.densify_split_clone(s_, None, 1, dens, noise=noise)
+        got[dev] = (pruned.n_active, grown.n_active,
+                    grown.params.means3d[:grown.n_active].cpu())
+    (pc, gc, mc), (pg, gg, mg) = got["cpu"], got["cuda"]
+    print(f"[{tag}] refinement of those {len(pick)}: prune_gaussians keeps "
+          f"{pg} on the card, {pc} on the CPU; densify_split_clone gives "
+          f"{gg} / {gc}; means within {float((mg - mc).abs().max()):.1e}")
+    assert (pg, gg) == (pc, gc) and pc < len(pick) < gc
+    assert float((mg - mc).abs().max()) <= 1e-5
+    return launches
+
+
+def phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
+             wrappers):
+    """Phase 2f; each sub-phase's launches are counted from zero and
+    returned for the kernels line."""
+    import torch
+    t0 = time.time()
+    launches = {"resume": resume_phase(engine3, config3, params_ls3, refs3,
+                                       wrappers),
+                "progress": progress_phase(wrappers)}
+    launches["scannetpp"], probe = scannetpp_phase(wrappers)
+    launches["mesh"] = mesh_phase(engine3, params_ls3, bk_train3, bk_eval3,
+                                  wrappers)
+    launches["dense"] = dense_phase(params_ls3, engine3, wrappers)
+    torch.cuda.synchronize()
+    print(f"[2f] {time.time() - t0:.1f} s; launches {launches}")
+    return {"launches": launches, "probe": probe}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -809,6 +1350,12 @@ def main() -> int:
     # ---- phase 2c: section boundaries on the default routes -------------
     config3 = room0_proxy_config()
     config3["baseframe_every"] = BOUNDARY_BFE
+    # phase 2f-a resumes from the checkpoint saved after frame 5
+    config3["workdir"] = CKPT_WORKDIR
+    config3["save_checkpoints"] = True
+    config3["checkpoint_interval"] = RESUME_FROM + 1
+    import shutil
+    shutil.rmtree(CKPT_WORKDIR, ignore_errors=True)
     t0 = time.time()
     engine3 = VTGaussianSLAM(config3, device="cuda")
     torch.cuda.synchronize()
@@ -913,15 +1460,20 @@ def main() -> int:
         assert lc["K4"] == 30, lc
         cli_runs.append(lc)
 
+    # ---- phase 2f: resume, progress reports, ScanNet++, mesh, dense ------
+    f = phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
+                 wrappers)
+
     runs = (launches1, launches2, launches3, launches4, launches_e1,
-            launches_e2, *cli_runs)
+            launches_e2, *cli_runs, *f["launches"].values())
     launches = {k: sum(r[k] for r in runs) for k in wrappers}
     print(f"[launches] slice {launches1}; generic route {launches2}; "
           f"boundaries {launches3}; generic boundary {launches4}; phase 2c "
           f"eval at the training budget {launches_e1}, at the eval_mode "
           f"budget {launches_e2}; CLI smoke, medium, medium eval_mode x2 "
-          f"{cli_runs}; K6 launches on the engine paths: {launches['K6']} "
-          f"(no engine path calls splat_blend's \"all\" mode)")
+          f"{cli_runs}; phase 2f {f['launches']}; K6 launches on the engine "
+          f"paths: {launches['K6']} (no engine path calls splat_blend's "
+          f"\"all\" mode)")
 
     # ---- phase 3: kernels against plain, on the slice's inputs ---------
     cam = engine.cam
@@ -983,6 +1535,12 @@ def main() -> int:
     recs_ee, counts_ee, _ = slam_records(
         sec_e.params, sec_e.active_mask(), traj_e.quats[t_e],
         traj_e.trans[t_e], cam, bk_eval3)
+    # K4 on phase 2f-c's render of the ScanNet++ proxy at 584x876 (the
+    # probe's and the progress report's input) at its last frame's pose
+    pp_sec, pp_q, pp_t, pp_cam, pp_bk = f["probe"]
+    recs_pp, counts_pp, _ = slam_records(pp_sec.params, pp_sec.active_mask(),
+                                         pp_q, pp_t, pp_cam, pp_bk)
+    tiles_x_pp = -(-pp_cam.width // 16)
 
     # K5 inputs: the generic route's records at its last committed pose and
     # the mapping-loss cotangent of their blend
@@ -1196,7 +1754,19 @@ def main() -> int:
                            recs_ee[ids], counts_ee[ids], tiles_x,
                            BLEND_CHANNELS, ids),
                        bytes=k4_bytes(recs_ee),
-                       work=lambda: blend_work(recs_ee, counts_ee, tiles_x))]),
+                       work=lambda: blend_work(recs_ee, counts_ee, tiles_x)),
+                  dict(tag=f"phase 2f-c ScanNet++ render at {pp_cam.height}x"
+                           f"{pp_cam.width} (mpt {recs_pp.shape[2]})",
+                       counts=counts_pp,
+                       launches=f["launches"]["scannetpp"]["K4"],
+                       kernel=lambda: cb.blend_forward(
+                           recs_pp, counts_pp, tiles_x_pp, BLEND_CHANNELS),
+                       plain=lambda ids: cb.blend_forward_plain(
+                           recs_pp[ids], counts_pp[ids], tiles_x_pp,
+                           BLEND_CHANNELS, ids),
+                       bytes=k4_bytes(recs_pp),
+                       work=lambda: blend_work(recs_pp, counts_pp,
+                                               tiles_x_pp))]),
         "K5": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:274",
@@ -1262,7 +1832,8 @@ def main() -> int:
               f"boundaries {launches3[name]}, generic boundary "
               f"{launches4[name]}, phase 2e evaluations "
               f"{launches_e1[name] + launches_e2[name]}, CLI runs "
-              f"{sum(r[name] for r in cli_runs)})")
+              f"{sum(r[name] for r in cli_runs)}, phase 2f "
+              f"{sum(r[name] for r in f['launches'].values())})")
         if name != "K6":    # K6 walks K2's inputs
             steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
         row = {"name": name, "route": sp["route"],

@@ -14,10 +14,14 @@ the CPU (the kernels' plain versions).
   0) re-scored by the port's CLI and by JAX. Per-frame PSNR within 1e-3 dB,
   depth L1 / RMSE, MS-SSIM and LPIPS within 1e-5 relative, the ATE within
   1e-6 m (printed to 0.01 cm, so compared through the returned value).
-- Every shipped Replica, TUM and ScanNet config runs to its end on a
-  2-frame fixture tree of its format at 24x32 (`--set data.basedir=...`,
-  the size, and the fixture's camera YAML; tracking and mapping cut to 2
-  iterations); ScanNet++ is still refused (odometry is not ported).
+- Every shipped Replica, TUM, ScanNet and ScanNet++ config runs to its
+  end on a 2-frame fixture tree of its format at 24x32 (`--set
+  data.basedir=...`, the size, and the fixture's camera YAML or, for
+  ScanNet++, the tree's own intrinsics; tracking and mapping cut to 2
+  iterations), with use_wandb off but for the first Replica config, which
+  keeps it on as shipped and writes `events.jsonl` (an init record, the
+  per-iteration tracking and mapping losses, one progress record for
+  frame 1 and the Final Stats record).
 - `--set` stores Python literals, keeps a bare word only for a new or a
   string entry, and refuses a lower-case boolean or a bare word for a flag
   or a number before anything runs.
@@ -256,8 +260,17 @@ def _fixture_tree(root, family, sequence):
     return yml
 
 
+def _scannetpp_tree(root, sequence):
+    """tests/test_torch_datasets.py's ScanNet++ tree (6 random frames, the
+    first 4 the train split) under root/sequence."""
+    from test_torch_datasets import _scannetpp
+    _, fixture_seq, _ = _scannetpp(root, np.random.default_rng(0), True,
+                                   False)
+    os.rename(os.path.join(root, fixture_seq), os.path.join(root, sequence))
+
+
 @pytest.mark.parametrize("path", _shipped("replica") + _shipped("tum")
-                         + _shipped("scannet"),
+                         + _shipped("scannet") + _shipped("scannetpp"),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_shipped_real_data_config_runs_on_a_fixture_tree(tmp_path, path,
                                                          capsys, monkeypatch):
@@ -268,9 +281,14 @@ def test_shipped_real_data_config_runs_on_a_fixture_tree(tmp_path, path,
         str(_load_config(path, [])["data"]["sequence"]))
     data = str(tmp_path / "data")
     os.makedirs(data)
-    yml = _fixture_tree(data, family, sequence)
-    sets = [f"workdir={tmp_path / 'exp'}", f"data.basedir={data}",
-            f"data.gradslam_data_cfg={yml}", "use_wandb=False",
+    wandb = path == _shipped("replica")[0]
+    if family == "scannetpp":
+        _scannetpp_tree(data, sequence)
+        tree = ["data.num_frames=2"]
+    else:
+        tree = [f"data.gradslam_data_cfg={_fixture_tree(data, family, sequence)}"]
+    sets = [f"workdir={tmp_path / 'exp'}", f"data.basedir={data}", *tree,
+            f"use_wandb={wandb}",
             "data.desired_image_height=24", "data.desired_image_width=32",
             "data.densification_image_height=48",
             "data.densification_image_width=64", "eval_every=1",
@@ -284,12 +302,16 @@ def test_shipped_real_data_config_runs_on_a_fixture_tree(tmp_path, path,
     assert "frame 1:" in out and "Final Average ATE RMSE" in out
     rdirs = glob.glob(str(tmp_path / "exp" / "*" / "params_ls.npy"))
     assert len(rdirs) == 1
-    psnr = _txt(os.path.dirname(rdirs[0]), "psnr")
+    rdir = os.path.dirname(rdirs[0])
+    psnr = _txt(rdir, "psnr")
     assert psnr.shape == (2,) and np.isfinite(psnr).all()
-
-
-def test_scannetpp_is_still_refused(tmp_path, monkeypatch):
-    monkeypatch.chdir(REPO)
-    path = _shipped("scannetpp")[0]
-    with pytest.raises(NotImplementedError, match="ScanNet\\+\\+ odometry"):
-        main([path, "--device", "cpu", "--set", f"workdir={tmp_path}"])
+    events = os.path.join(rdir, "events.jsonl")
+    assert os.path.exists(events) == wandb
+    if wandb:
+        import json
+        recs = [json.loads(x) for x in open(events).read().splitlines()]
+        n = lambda key: sum(1 for r in recs if key in r)
+        assert recs[0]["event"] == "init"
+        assert n("Per Iteration Tracking/Loss") == 2       # frame 1
+        assert n("Per Iteration Mapping/Loss") == 4        # frames 0, 1
+        assert n("Tracking/PSNR") == 1 and n("Final Stats/step") == 1

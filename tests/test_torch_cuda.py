@@ -688,3 +688,90 @@ def test_smoke_cli_on_card(card, tmp_path, capsys):
         assert np.isfinite(np.loadtxt(rdir / "eval" / f"{k}.txt")).all(), k
     for sub in ("rendered_rgb", "rendered_depth", "rgb", "depth"):
         assert len(os.listdir(rdir / "eval" / sub)) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["point_to_plane", "hybrid"])
+def test_odometry_on_card_matches_cpu(card, method):
+    """The visual odometer's relative pose on the card within 1e-4 of the
+    CPU's (float32 6x6 solves in another rounding)."""
+    from vtgaussian_slam_tpu_torch.core.odometry import VisualOdometer
+    from vtgaussian_slam_tpu_torch.datasets.synthetic import \
+        SyntheticRoomDataset
+    ds = SyntheticRoomDataset(num_frames=30, height=96, width=128, seed=2,
+                              motion_scale=0.3)
+    c0, d0, K, _ = ds[0]
+    c1, d1, _, _ = ds[1]
+    rel = {}
+    for dev in ("cpu", card):
+        odo = VisualOdometer(K[:3, :3], method_name=method, device=dev)
+        odo.update_last_rgbd(c0, d0)
+        rel[str(dev)] = odo.estimate_rel_pose(c1, d1)
+    np.testing.assert_allclose(rel["cuda"], rel["cpu"], atol=1e-4, rtol=0)
+
+
+def _mesh_views(n=3, H=48, W=64, seed=0):
+    rng = np.random.default_rng(seed)
+    K = np.array([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]])
+    out = []
+    for i in range(n):
+        yy, xx = np.mgrid[0:H, 0:W]
+        depth = (2.0 + 0.1 * np.sin(xx / 7.0 + i)
+                 + rng.normal(0, 0.003, (H, W))).astype(np.float32)
+        color = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+        w2c = np.eye(4)
+        w2c[:3, 3] = [0.03 * i, -0.02 * i, 0.01 * i]
+        out.append((color, depth, K, w2c))
+    return out
+
+
+@pytest.mark.cuda
+def test_tsdf_integrate_and_extract_on_card_match_cpu(card):
+    """The TSDF integrate on the card against the CPU's: weights equal on
+    all but 1e-4 of the voxels (a voxel within an ulp of a cut), tsdf within
+    two float32 ulps of the largest depth over sdf_trunc where the weights
+    agree (the card may fuse the voxel coordinate's multiply-add), colours
+    within 1e-6; the mesh of the card's volume, extracted on the card and
+    on the CPU, with identical faces."""
+    from vtgaussian_slam_tpu_torch.eval.mesh import TSDFVolume, marching_cubes
+    vols = {}
+    for dev in ("cpu", card):
+        v = TSDFVolume([-1.6, -1.2, 1.6], [1.6, 1.2, 2.5], voxel_length=0.03,
+                       sdf_trunc=0.09, device=dev, slab_voxels=25000)
+        for view in _mesh_views():
+            v.integrate(*view)
+        vols[str(dev)] = v
+    c, g = vols["cpu"], vols["cuda"]
+    same_w = g.weight.cpu() == c.weight
+    assert same_w.float().mean() >= 1 - 1e-4
+    atol = 2 * float(np.spacing(np.float32(2.2))) / 0.09
+    assert (g.tsdf.cpu() - c.tsdf)[same_w].abs().max() <= atol
+    assert (g.color.cpu() - c.color)[same_w].abs().max() <= 1e-6
+    tsdf = torch.where(g.weight > 0, g.tsdf, torch.full_like(g.tsdf, np.nan))
+    vg, fg = marching_cubes(tsdf)
+    vc, fc = marching_cubes(tsdf.cpu())
+    assert len(fg) > 500
+    np.testing.assert_array_equal(fg, fc)
+    np.testing.assert_allclose(vg, vc, atol=1e-12, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_depth_zbuffer_on_card_matches_cpu(card):
+    """render_mesh_depth on the card within 1e-5 of the CPU's on a
+    subdivided slanted quad over a far one (scatter-min is order-free)."""
+    from vtgaussian_slam_tpu_torch.eval.mesh import (render_mesh_depth,
+                                                     subdivide_to_edge)
+    v = np.array([[-0.2, -0.2, 1.8], [0.2, -0.2, 2.2], [0.2, 0.2, 2.2],
+                  [-0.2, 0.2, 1.8], [-0.5, -0.5, 3.0], [0.5, -0.5, 3.0],
+                  [0.5, 0.5, 3.0], [-0.5, 0.5, 3.0]])
+    f = np.array([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]])
+    v, f = subdivide_to_edge(v, f, 0.05)
+    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]])
+    out = {}
+    for dev in ("cpu", card):
+        out[str(dev)] = render_mesh_depth(
+            torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev),
+            torch.eye(4, device=dev), K.to(dev), 48, 64, chunk=64).cpu()
+    assert (out["cpu"] > 0).sum() > 400       # both quads' pixels
+    assert torch.equal(out["cuda"] > 0, out["cpu"] > 0)
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-5

@@ -1,5 +1,8 @@
 """Shared inputs for the tests that hold the PyTorch port against the JAX
 package: small scenes made from a numpy seed, handed to both sides."""
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -148,3 +151,40 @@ def first_exp_spent():
     the tensor; later calls are exact. A module that compares at 1e-5 or
     tighter imports this fixture to spend that first call."""
     torch.exp(torch.randn(1 << 20))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """A module that runs whole engines or heavy torch ops on the CPU
+    imports this fixture: one intra-op thread, so that pytest-xdist's
+    workers (each with torch's default of a thread per core) do not
+    oversubscribe the cores; restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def smoke_config(workdir, frames=8, height=24, width=32, iters=3, **over):
+    """configs/synthetic/smoke.py cut to `frames` frames of height x width
+    and `iters` tracking / mapping iterations, writing under `workdir`;
+    `over` sets top-level entries (a dict value updates that entry)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "smoke_cfg", os.path.join(repo, "configs", "synthetic", "smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = mod.config
+    cfg["workdir"] = str(workdir)
+    cfg["data"]["synthetic"].update(num_frames=frames, height=height,
+                                    width=width)
+    cfg["data"]["desired_image_height"] = height
+    cfg["data"]["desired_image_width"] = width
+    cfg["tracking"]["num_iters"] = cfg["tracking"]["base1_num_iters"] = iters
+    cfg["mapping"]["num_iters"] = iters
+    for k, v in over.items():
+        if isinstance(v, dict):
+            cfg[k].update(v)
+        else:
+            cfg[k] = v
+    return cfg

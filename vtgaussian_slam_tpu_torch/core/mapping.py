@@ -40,6 +40,7 @@ class MappingConfig(NamedTuple):
     use_global: bool
     baseframe_every: int = 1
     log_global_loss: bool = True
+    keep_hist: bool = True    # fill the per-iteration loss history
 
 
 class KeyframeBuffer(NamedTuple):
@@ -90,7 +91,8 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
     stay frozen and take no gradient. With `cfg.use_global`, the global
     term renders [fixed_params (detached); the section]. `draws` (keyframe
     indices, one per iteration) replace the generator's uniform draws over
-    `kf.count`. Returns (params, (num_iters, 3) history [loss, im, depth])."""
+    `kf.count`. Returns (params, (num_iters, 3) history [loss, im, depth]),
+    the history None when `cfg.keep_hist` is off."""
     from .map_cache import concat_params
     lr_of = dict(cfg.lrs)
     names = [a for f, a in PARAM_KEYS if lr_of.get(f, 0.0) != 0.0]
@@ -101,7 +103,8 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
     opt = adam_init(leaves)
     if cfg.use_global:
         fixed = GaussianParams(*[x.detach() for x in fixed_params.tensors()])
-    hist = torch.zeros((cfg.num_iters, 3), device=params.means3d.device)
+    hist = (torch.zeros((cfg.num_iters, 3), device=params.means3d.device)
+            if cfg.keep_hist else None)
     for i in range(cfg.num_iters):
         k = _draw(i, kf.count, draws, generator)
         frame = Frame(color=kf.colors[k], depth=kf.depths[k])
@@ -120,7 +123,8 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
             loss = loss + g_loss
         grads = list(torch.autograd.grad(loss, vs)) if vs else []
         leaves, opt = adam_step(leaves, grads, opt, lrs, eps=MAP_EPS)
-        hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
+        if hist is not None:
+            hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
     return GaussianParams(**frozen, **dict(zip(names, leaves))), hist
 
 
@@ -133,13 +137,14 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
     and, with `cfg.use_global`, `render_global(f8)`. `draws` (cache-slot
     indices, one per iteration) replace the generator's uniform draws over
     the `kf.count` cached slots. Returns (params, (num_iters, 3) history
-    [loss, im, depth])."""
+    [loss, im, depth]), the history None when `cfg.keep_hist` is off."""
     from .map_cache import pack_fields8, unpack_fields8
 
     lrs8 = lrs8_of(dict(cfg.lrs), params.means3d)
     f8 = pack_fields8(params)
     opt = adam_init([f8])
-    hist = torch.zeros((cfg.num_iters, 3), device=f8.device)
+    hist = (torch.zeros((cfg.num_iters, 3), device=f8.device)
+            if cfg.keep_hist else None)
     half = torch.tensor(0.5, device=f8.device)
     for i in range(cfg.num_iters):
         slot = _draw(i, kf.count, draws, generator)
@@ -157,7 +162,8 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
             loss = loss + g_loss
         (g8,) = torch.autograd.grad(loss, (v8,))
         (f8,), opt = adam_step([f8], [g8], opt, [lrs8], eps=MAP_EPS)
-        hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
+        if hist is not None:
+            hist[i] = torch.stack([loss, out.im_loss, out.depth_loss]).detach()
     return unpack_fields8(params, f8), hist
 
 

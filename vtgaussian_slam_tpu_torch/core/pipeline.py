@@ -38,6 +38,18 @@ route but not the Gaussians: sections are seeded with (N, 1) log-scales
 either way. The pair budget follows `auto_pair_budget` times a boost that
 the measured truncation harm (map_cache.trunc_probe) drives.
 
+ScanNet++ configs probe each frame's loss at the propagated pose (one
+render) and, above `init_err_ratio` x the running medians of the tracked
+frames' final losses, double the iterations and start from the RGB-D
+visual odometer's pose relative to the previous frame (core/odometry.py);
+`tracking.multiavg` averages the two last relative motions from frame 4 on.
+With `use_wandb` the loops keep their loss histories on the device, read
+once per frame into `RunLogger` records (utils/observability.py), and every
+`report_global_progress_every` frames a render at the committed pose is
+scored and logged (`t_progress`). `run` saves a checkpoint every
+`checkpoint_interval` frames with `save_checkpoints` and resumes from one
+with `load_checkpoint` (utils/checkpoint.py).
+
 Frames come from the real-data loaders or the synthetic generator
 (`build_dataset`) through a `FramePrefetcher`, whose threads decode the
 next frames while the engine works on the current one.
@@ -65,7 +77,10 @@ from ..models import gaussians as G
 from ..ops import geometry as geo
 from ..ops.camera import setup_camera
 from ..ops.image import geometric_edge_mask, resize_mask_nearest
-from ..utils.common import resolve_device
+from ..utils.common import resolve_device, save_params_ckpt
+from ..utils.observability import (RunLogger, frame_quality, report_loss,
+                                   report_progress, save_progress_panel,
+                                   save_tracking_loss_viz)
 from .config import (auto_pair_budget, prepare_config,
                      separate_densification_res)
 from .densify import (base_frame_pointcloud, densify_from_pixels,
@@ -78,15 +93,16 @@ from .selection import (find_earliest_keyframe, overlap_percents,
                         select_earliest_topk_base, select_topk_overlap,
                         select_visbased)
 from .track_cache import build_track_cache
-from .tracking import (TrackingConfig, init_track_state, track_frame,
-                       track_frame_cached)
+from .tracking import (TrackingConfig, init_track_state, probe_loss,
+                       track_frame, track_frame_cached)
 
 # cumulative seconds in `stats` that `frame_times[t]["timers"]` splits per
 # frame: the boundary work, the paging, and the frame's load and staging
 TIMER_KEYS = ("t_select", "t_sel_pool", "t_sel_walk", "t_prefetch",
               "t_track_prep", "t_track_cache", "t_spawn", "t_map_select",
               "t_global_concat", "t_global_cache", "t_map_store", "t_page",
-              "t_page_in", "t_page_fin", "t_dataset", "t_stage")
+              "t_page_in", "t_page_fin", "t_dataset", "t_stage",
+              "t_progress")
 
 
 def gradslam_config(data_cfg: dict) -> dict:
@@ -191,15 +207,11 @@ class VTGaussianSLAM:
             and tpu.get("map_binned", self.device.type != "cpu"))
         if float(tpu.get("two_class_frac", 0.0)) > 0.0:
             raise NotImplementedError("two-class binning: later slice")
-        if cfg["tracking"].get("multiavg", False):
-            raise NotImplementedError("multiavg pose propagation")
 
         self.dataset_name = gradslam_config(data_cfg)["dataset_name"]
         if self.dataset_name == "synthetic" and cfg.get("selection_style"):
             # a synthetic proxy runs its scene family's selection
             self.dataset_name = cfg["selection_style"]
-        if self.dataset_name == "scannetpp":
-            raise NotImplementedError("ScanNet++ odometry: later slice")
 
         lookahead = tpu.get("prefetch", 2)
         self.dataset = FramePrefetcher(build_dataset(cfg), lookahead=lookahead)
@@ -280,6 +292,31 @@ class VTGaussianSLAM:
                              if self.device.type == "cuda" else None)
         self.frame_times: dict[int, dict] = {}
         self.frames_done = 0    # frames 0 .. frames_done - 1 processed
+        # ScanNet++: the initial-error probe's history and the odometer
+        # that re-initializes a frame whose probe loss is far above it
+        self.odometer = None
+        self.frame_color_loss: list[float] = []
+        self.frame_depth_loss: list[float] = []
+        self.rescue_log: list[dict] = []
+        if self.dataset_name == "scannetpp":
+            from .odometry import VisualOdometer
+            self.odometer = VisualOdometer(
+                self.intrinsics, cfg.get("odometer_method", "point_to_plane"),
+                device=self.device)
+        # the use_wandb event stream: wandb when it imports, else
+        # <run>/events.jsonl; the loops keep loss histories only for it
+        wb = cfg.get("wandb", {})
+        self.logger = RunLogger(
+            enabled=bool(cfg.get("use_wandb")), project=wb.get("project", ""),
+            group=wb.get("group", ""), name=wb.get("name", ""),
+            entity=wb.get("entity", ""), config=cfg,
+            out_dir=self.run_dir())
+        self._keep_hist = bool(cfg.get("use_wandb")) or bool(
+            cfg["tracking"].get("visualize_tracking_loss", False))
+        self._track_hist: list[tuple] = []   # this frame's (im, depth) streams
+        self._wandb_track_step = self._wandb_map_step = 0
+        self._panels = None     # matplotlib importable (checked once)
+        self.checkpoint_log: list[dict] = []
         self.stats = {
             "tracking_iter_time_sum": 0.0, "tracking_iter_count": 0,
             "tracking_frame_time_sum": 0.0, "tracking_frame_count": 0,
@@ -290,10 +327,14 @@ class VTGaussianSLAM:
             "tile_truncation_frac_max": 0.0, "trunc_probe_diff_max": 0.0,
             "section_page_ins": 0, "section_prefetched_ins": 0,
             "section_page_outs": 0, "t_densify": 0.0,
-            **{k: 0.0 for k in TIMER_KEYS}}
+            "t_checkpoint": 0.0, **{k: 0.0 for k in TIMER_KEYS}}
         self._init_first_frame(color0, depth0)
 
     # ------------------------------------------------------------------
+    def run_dir(self) -> str:
+        return os.path.join(self.config.get("workdir", "."),
+                            self.config.get("run_name", "run"))
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -395,13 +436,28 @@ class VTGaussianSLAM:
 
     def _propagate_pose(self, t: int):
         """Constant-velocity pose init from frames t-1, t-2 (a copy of t-1
-        at t == 1)."""
+        at t == 1); with tracking.multiavg, from t > 3 on, the average of
+        the two last relative motions."""
         q, tr = self.traj.quats, self.traj.trans
         if t <= 1:
             return q[t - 1].clone(), tr[t - 1].clone()
-        w2c1 = geo.pose_to_w2c(geo.normalize(q[t - 1]), tr[t - 1])
-        w2c2 = geo.pose_to_w2c(geo.normalize(q[t - 2]), tr[t - 2])
-        w2c = geo.constant_velocity_init(w2c1, w2c2)
+
+        def w2c_of(i):
+            return geo.pose_to_w2c(geo.normalize(q[i]), tr[i])
+
+        if self.config["tracking"].get("multiavg", False) and t > 3:
+            w2c = geo.constant_velocity_init_multiavg(
+                w2c_of(t - 1), w2c_of(t - 2), w2c_of(t - 3))
+        else:
+            w2c = geo.constant_velocity_init(w2c_of(t - 1), w2c_of(t - 2))
+        return geo.rotmat_to_quat(w2c[:3, :3]), w2c[:3, 3]
+
+    def _pose_from_rel(self, t: int, rel_c2w: np.ndarray):
+        """The odometer's init: w2c_t = inv(c2w_{t-1} @ rel)."""
+        rel = torch.as_tensor(np.asarray(rel_c2w, np.float32),
+                              device=self.device)
+        c2w = geo.invert_se3(self._traj_w2c(t - 1)) @ rel
+        w2c = geo.invert_se3(c2w)
         return geo.rotmat_to_quat(w2c[:3, :3]), w2c[:3, 3]
 
     def _dataset_depth(self, fid: int) -> np.ndarray:
@@ -498,6 +554,8 @@ class VTGaussianSLAM:
             self.earliest_corr.append([earliest, None, t])
             self.stats["t_sel_walk"] += time.time() - t0
             return [earliest // self.bfe], earliest
+        if self.dataset_name == "scannetpp":
+            return [bf_idx - 1], (bf_idx - 1) * self.bfe
 
         # tum / scannet (and plain synthetic): all-pixel visibility scoring
         # over the pool less the newest base frames, earliest top-k sections
@@ -562,26 +620,33 @@ class VTGaussianSLAM:
         far_mask = None
         if self.dataset_name != "replica":
             # far-depth filter: factor x mean of the 30 largest frame means
+            # (the statistics grow on ScanNet++ too, where no mask applies)
             d = frame.depth
             dm = float((d * (d > 0)).sum() / torch.clamp((d > 0).sum(), min=1))
             self.depth_means = sorted(self.depth_means + [dm])
-            far_id = min(30, len(self.depth_means))
-            far_thres = cfg["far_depth_factor"] * float(
-                np.mean(self.depth_means[-far_id:]))
-            far_mask = frame.depth[0] < far_thres
+            if self.dataset_name != "scannetpp":
+                far_id = min(30, len(self.depth_means))
+                far_thres = cfg["far_depth_factor"] * float(
+                    np.mean(self.depth_means[-far_id:]))
+                far_mask = frame.depth[0] < far_thres
 
         num_iters = tr["num_iters"]
-        if bf_idx == 0 and tr.get("base1_num_iters"):
+        if (self.dataset_name != "scannetpp" and bf_idx == 0
+                and tr.get("base1_num_iters")):
             num_iters = tr["base1_num_iters"]
         sil_thres = tr["sil_thres"]
         if boundary and tr.get("sil_thres_base") is not None:
             sil_thres = tr["sil_thres_base"]
+        if self.odometer is not None:
+            num_iters, q0, tr0 = self._rescue(t, frame, q0, tr0, sil_thres,
+                                              num_iters)
 
         def tcfg_of(n, metric):
             return TrackingConfig(
                 num_iters=n, lr_quat=tr["lrs"]["cam_unnorm_rots"],
                 lr_trans=tr["lrs"]["cam_trans"], metric=metric,
-                p2p_method=tr["p2p_method"], loss_cfg=self._loss_cfg(True))
+                p2p_method=tr["p2p_method"], loss_cfg=self._loss_cfg(True),
+                keep_hist=self._keep_hist)
 
         at_boundary = boundary and bf_idx >= 1
         if at_boundary:
@@ -649,8 +714,63 @@ class VTGaussianSLAM:
         total_iters = num_iters * (max(1, len(cand_secs)) if two_phase else 1)
         self.stats["tracking_iter_time_sum"] += dt
         self.stats["tracking_iter_count"] += max(total_iters, 1)
+        if self.dataset_name == "scannetpp":
+            # the final iteration's losses, the probe's running median
+            im_l, d_l = torch.stack([state.im_loss, state.depth_loss]).tolist()
+            self.frame_color_loss.append(im_l)
+            self.frame_depth_loss.append(d_l)
         self._traj_write(t, state.best_quat, state.best_trans)
+        self._log_track_losses()
         return sec_id
+
+    def _rescue(self, t: int, frame: Frame, q0, tr0, sil_thres: float,
+                num_iters: int):
+        """ScanNet++: the loss at the propagated pose (one render, K4 on
+        the card) against init_err_ratio x the running medians of the
+        tracked frames' final losses; above either, the frame gets twice
+        the iterations and, with help_camera_initialization, the visual
+        odometer's pose relative to frame t-1 as its init. Returns
+        (num_iters, quat, trans)."""
+        cfg = self.config
+        bf_idx = t // self.bfe
+        sec = self._sec(bf_idx - 1 if t % self.bfe == 0 else bf_idx)
+        im_l, d_l = probe_loss(sec.params, sec.active_mask(), q0, tr0, frame,
+                               self.cam, self._loss_cfg(True), sil_thres)
+        im_l, d_l = torch.stack([im_l, d_l]).tolist()
+        ratio = cfg.get("init_err_ratio", 50)
+        fired = bool(self.frame_color_loss) and (
+            im_l > ratio * float(np.median(self.frame_color_loss))
+            or d_l > ratio * float(np.median(self.frame_depth_loss)))
+        rel = None
+        if fired:
+            num_iters = 2 * num_iters
+            if (cfg.get("help_camera_initialization")
+                    and cfg.get("odometry_type") != "odometer"):
+                last_color, last_depth, _, _ = self.dataset[t - 1]
+                self.odometer.update_last_rgbd(last_color, last_depth)
+                rel = self.odometer.estimate_rel_pose(self._color_np,
+                                                      frame.depth[0])
+                q0, tr0 = self._pose_from_rel(t, rel)
+                self._traj_write(t, q0, tr0)
+        self.rescue_log.append(dict(t=t, probe_im=im_l, probe_depth=d_l,
+                                    fired=fired, num_iters=num_iters,
+                                    odometer_rel=rel))
+        return num_iters, q0, tr0
+
+    def _log_track_losses(self):
+        """The frame's per-iteration tracking losses as use_wandb records,
+        read from the device once."""
+        hists, self._track_hist = self._track_hist, []
+        if not self.config["use_wandb"] or not hists:
+            return
+        w = self.config["tracking"]["loss_weights"]
+        im = torch.cat([h[0] for h in hists])
+        dl = torch.cat([h[1] for h in hists])
+        for il, d in torch.stack([im, dl], 1).tolist():
+            self._wandb_track_step = report_loss(
+                {"loss": w["im"] * il + w["depth"] * d, "im": il,
+                 "depth": d}, self.logger, self._wandb_track_step,
+                tracking=True)
 
     def _run_track(self, sec, state, frame, aux_mask, p2p_t, tcfg):
         """The frozen-binning tracking loop, rebinned every
@@ -659,11 +779,14 @@ class VTGaussianSLAM:
         when the cache route is off."""
         if not self.track_cached:
             t0 = time.time()
-            state, _, _ = track_frame(sec.params, sec.active_mask(), state,
-                                      frame, aux_mask, self.cam, tcfg, p2p_t)
+            state, im_h, d_h = track_frame(sec.params, sec.active_mask(),
+                                           state, frame, aux_mask, self.cam,
+                                           tcfg, p2p_t)
             self._sync()
             self.stats["tracking_loop_time_sum"] += time.time() - t0
             self.stats["tracking_loop_iters"] += tcfg.num_iters
+            self._track_hist_add(sec, state, frame, aux_mask, tcfg,
+                                 [(im_h, d_h)])
             return state
         tpu = self.config["tpu"]
         bk = self.backend_kwargs
@@ -674,6 +797,7 @@ class VTGaussianSLAM:
                     [rebin] * (total // rebin)
                     + ([total % rebin] if total % rebin else []))
         n_tiles = (-(-self.cam.height // 16)) * (-(-self.cam.width // 16))
+        hists = []
         for seg in seg_lens:
             t0 = time.time()
             cache = build_track_cache(
@@ -682,10 +806,10 @@ class VTGaussianSLAM:
                 chunk=bk["chunk"], select=self._bin_select)
             self.stats["t_track_cache"] += time.time() - t0
             t0 = time.time()
-            state, _, _ = track_frame_cached(cache, state, frame, aux_mask,
-                                             self.cam,
-                                             tcfg._replace(num_iters=seg),
-                                             p2p_t)
+            state, im_h, d_h = track_frame_cached(
+                cache, state, frame, aux_mask, self.cam,
+                tcfg._replace(num_iters=seg), p2p_t)
+            hists.append((im_h, d_h))
             self._sync()
             self.stats["tracking_loop_time_sum"] += time.time() - t0
             self.stats["tracking_loop_iters"] += seg
@@ -704,7 +828,29 @@ class VTGaussianSLAM:
                     mpt=mpt, select=self._bin_select)
                 self._pending_harm_mpt = mpt
         self._frames_tracked += 1
+        self._track_hist_add(sec, state, frame, aux_mask, tcfg, hists)
         return state
+
+    def _track_hist_add(self, sec, state, frame, aux_mask, tcfg, hists):
+        """Keep a tracking call's loss streams for the frame's records and,
+        with tracking.visualize_tracking_loss, draw its figure."""
+        if not tcfg.keep_hist:
+            return
+        im_h = torch.cat([h[0] for h in hists])
+        d_h = torch.cat([h[1] for h in hists])
+        self._track_hist.append((im_h, d_h))
+        if not self.config["tracking"].get("visualize_tracking_loss", False):
+            return
+        t = self._cur_frame
+        with torch.no_grad():
+            r = render_slam(sec.params, sec.active_mask(), state.best_quat,
+                            state.best_trans, self.cam, self.backend_kwargs)
+        save_tracking_loss_viz(
+            os.path.join(self.run_dir(), "tracking_loss_viz",
+                         f"frame{t:04d}.png"),
+            r, frame, float(state.sil_thres), aux_mask=aux_mask,
+            im_hist=im_h, depth_hist=d_h,
+            title=f"Frame{t:04d} tracking ({tcfg.num_iters} iterations)")
 
     # ------------------------------------------------------------------
     def _pixel_candidates(self, idx, depth0_np, color_np, cam, quat, trans):
@@ -850,10 +996,12 @@ class VTGaussianSLAM:
                              if k not in ("cam_unnorm_rots", "cam_trans"))),
             loss_cfg=self._loss_cfg(False), use_global=use_global,
             baseframe_every=self.bfe,
-            log_global_loss=bool(cfg["use_wandb"]))
+            log_global_loss=bool(cfg["use_wandb"]),
+            keep_hist=bool(cfg["use_wandb"]))
         start = bf_idx * self.bfe
         if not self.map_binned:
-            new_params = self._map_generic(t, frame, sec, mcfg, use_global)
+            new_params, hist = self._map_generic(t, frame, sec, mcfg,
+                                                 use_global)
         else:
             mbk = self.map_backend_kwargs
             W = min(self.bfe, int(cfg["tpu"].get("map_cache_slots", 64)))
@@ -873,16 +1021,21 @@ class VTGaussianSLAM:
             draws = (self.map_draws(t, mcfg.num_iters, count)
                      if self.map_draws is not None else None)
             t0 = time.time()
-            new_params, _ = map_frame_binned(sec.params, kf, slots, slot_ids,
-                                             self.cam, mcfg, draws=draws,
-                                             generator=self.map_generator,
-                                             gc=gc)
+            new_params, hist = map_frame_binned(
+                sec.params, kf, slots, slot_ids, self.cam, mcfg, draws=draws,
+                generator=self.map_generator, gc=gc)
             self._page_cold_finish(
                 hot={bf_idx} | set(self.fixed_section_ids or ()))
             self._sync()
             self.stats["mapping_loop_time_sum"] += time.time() - t0
             self.stats["mapping_loop_iters"] += mcfg.num_iters
         self.sections[bf_idx] = sec.replace(params=new_params)
+        if hist is not None:
+            # (num_iters, 3) [total, im, depth]: one device read per frame
+            for loss, il, dl in hist.tolist():
+                self._wandb_map_step = report_loss(
+                    {"loss": loss, "im": il, "depth": dl}, self.logger,
+                    self._wandb_map_step, mapping=True)
         dt = time.time() - t_start
         self.stats["mapping_frame_time_sum"] += dt
         self.stats["mapping_frame_count"] += 1
@@ -913,17 +1066,17 @@ class VTGaussianSLAM:
         draws = (self.map_draws(t, mcfg.num_iters, count)
                  if self.map_draws is not None else None)
         t0 = time.time()
-        new_params, _ = map_frame(sec.params, sec.active_mask(), kf, self.cam,
-                                  mcfg, draws=draws,
-                                  generator=self.map_generator,
-                                  fixed_params=fixed_params,
-                                  fixed_active=fixed_active)
+        new_params, hist = map_frame(sec.params, sec.active_mask(), kf,
+                                     self.cam, mcfg, draws=draws,
+                                     generator=self.map_generator,
+                                     fixed_params=fixed_params,
+                                     fixed_active=fixed_active)
         self._page_cold_finish(hot={t // self.bfe}
                                | set(self.fixed_section_ids or ()))
         self._sync()
         self.stats["mapping_loop_time_sum"] += time.time() - t0
         self.stats["mapping_loop_iters"] += mcfg.num_iters
-        return new_params
+        return new_params, hist
 
     # ------------------------------------------------------------------
     def process_frame_zero(self):
@@ -948,9 +1101,11 @@ class VTGaussianSLAM:
         if t == 0:
             return self.process_frame_zero()
         cfg = self.config
+        self._cur_frame = t
         before = {k: self.stats[k] for k in TIMER_KEYS}
         t0 = time.time()
         color_np, depth_np, _, gt_pose = self.dataset[t]
+        self._color_np = color_np
         self.stats["t_dataset"] += time.time() - t0
         self._remember_depth(t, np.asarray(depth_np)[..., 0].astype(np.float32))
         t0 = time.time()
@@ -996,6 +1151,11 @@ class VTGaussianSLAM:
                 self._map(t, frame)
                 self._sync()
                 times["map"] = time.time() - t0
+        if cfg["use_wandb"] and (
+                (t + 1) % cfg["report_global_progress_every"] == 0):
+            t0 = time.time()
+            self._report_progress(t, frame)
+            self.stats["t_progress"] += time.time() - t0
 
         # base-frame bookkeeping: replica registers boundary frames, the
         # others every overlap_every-th keyframe
@@ -1012,17 +1172,126 @@ class VTGaussianSLAM:
         self.frame_times[t] = times
         self.frames_done = max(self.frames_done, t + 1)
 
+    def _report_progress(self, t: int, frame: Frame):
+        """The use_wandb per-frame report: a render at the committed pose
+        (K4 on the card), its presence-masked PSNR and depth RMSE at the
+        tracking silhouette threshold with the latest pose error, and the
+        2x4 panel under plots/ where matplotlib imports (one note per run
+        where it does not). A failed render or metric dumps the newest
+        section as params<t>.npz, as the JAX engine does."""
+        sil = self.config["tracking"]["sil_thres"]
+        try:
+            sec = self._sec(min(t // self.bfe, len(self.sections) - 1))
+            with torch.no_grad():
+                r = render_slam(sec.params, sec.active_mask(),
+                                self.traj.quats[t], self.traj.trans[t],
+                                self.cam, self.backend_kwargs)
+            psnr, depth_rmse, _, _ = frame_quality(r, frame, sil)
+            report_progress(self.logger, t,
+                            self._traj_w2c(t).cpu().numpy(), self.gt_w2c,
+                            psnr=psnr, depth_rmse=depth_rmse)
+        except Exception:
+            i = len(self.sections) - 1
+            last = self.host_section(i) if i in self._paged else \
+                self.sections[i]
+            save_params_ckpt(G.section_to_numpy_params(last, self.traj),
+                             self.run_dir(), t)
+            print("Failed to evaluate trajectory.")
+            return
+        if self._panels is None:
+            try:
+                import matplotlib  # noqa: F401
+                self._panels = True
+            except ImportError:
+                self._panels = False
+                print("NOTE: no matplotlib: panels skipped (the progress "
+                      "records are logged)")
+        if self._panels:
+            save_progress_panel(
+                os.path.join(self.run_dir(), "plots", f"frame_{t:05d}.png"),
+                r, frame, sil, title=f"frame {t}: PSNR {psnr:.2f}  "
+                                     f"depth RMSE {depth_rmse:.3f}")
+
     def run(self, num_frames: int | None = None,
             on_frame: Callable[[int], None] | None = None):
-        """Frames 0 .. min(num_frames, the sequence) - 1; `on_frame(t)`
-        after each."""
+        """Frames 0 .. min(num_frames, the sequence) - 1, `on_frame(t)` after
+        each; from the checkpoint the config names when `load_checkpoint`
+        is set, and with a checkpoint every `checkpoint_interval` frames
+        when `save_checkpoints` is; then, with use_wandb, the Final Stats
+        record."""
+        from ..utils.checkpoint import load_checkpoint
+        cfg = self.config
         n = min(num_frames or self.num_frames, self.num_frames)
-        for t in range(n):
+        start = 0
+        if cfg.get("load_checkpoint"):
+            t0 = time.time()
+            start = load_checkpoint(
+                self, time_idx=cfg.get("checkpoint_time_idx") or None)
+            self.checkpoint_log.append(dict(t=start - 1, load_s=time.time()
+                                            - t0))
+            print(f"Resumed from checkpoint at frame {start - 1}")
+        for t in range(start, n):
             self.process_frame(t)
+            self.maybe_checkpoint(t)
             if on_frame is not None:
                 on_frame(t)
         self._page_cold_finish()
+        if cfg["use_wandb"]:
+            s = self.final_stats()
+            self.logger.log({
+                "Final Stats/Average Tracking Iteration Time (ms)":
+                    s["avg_tracking_iter_ms"],
+                "Final Stats/Average Tracking Frame Time (s)":
+                    s["avg_tracking_frame_s"],
+                "Final Stats/Average Mapping Iteration Time (ms)":
+                    s["avg_mapping_iter_ms"],
+                "Final Stats/Average Mapping Frame Time (s)":
+                    s["avg_mapping_frame_s"],
+                "Final Stats/step": 1})
+            self.logger.finish()
         return self
+
+    def maybe_checkpoint(self, t: int):
+        """After frame t: with save_checkpoints, a checkpoint every
+        checkpoint_interval frames (not after frame 0), its seconds in
+        frame_times[t]["checkpoint"], apart from the frame's split."""
+        cfg = self.config
+        if (t == 0 or not cfg.get("save_checkpoints")
+                or (t + 1) % cfg.get("checkpoint_interval", 100)):
+            return
+        from ..utils.checkpoint import save_checkpoint
+        t0 = time.time()
+        path = save_checkpoint(self, t)
+        dt = time.time() - t0
+        self.stats["t_checkpoint"] += dt
+        self.frame_times[t]["checkpoint"] = dt
+        # a truncation-probe reading in flight is not saved (a resume
+        # re-probes), so the resumed run can part from this one there
+        self.checkpoint_log.append(dict(
+            t=t, path=path, save_s=dt, bytes=os.path.getsize(path),
+            harm_in_flight=self._pending_harm is not None))
+
+    def _after_restore(self, t: int):
+        """Rebuild, after a checkpoint restored the state through frame t,
+        what the engine keeps beyond the file: the mapping cache store
+        learns the current section's mapped keyframe poses (its caches
+        are built on the next mapping phase), the global binning and the
+        depth LRU start empty, every section is on the device and the cold
+        ones page out as after frame t."""
+        self.frames_done = t + 1
+        self._depth_lru = {}
+        self._gcache = self._gcache_key = None
+        self._gcache_age = 0
+        self._page_pending, self._paged = {}, {}
+        self.map_store.reset()
+        start = (t // self.bfe) * self.bfe
+        if (t + 1) % self.bfe != 0:
+            for f in range(start, t + 1):
+                if f == 0 or (f + 1) % self.config["map_every"] == 0:
+                    self.map_store.poses[f - start] = (
+                        self.traj.quats[f].clone(), self.traj.trans[f].clone())
+        self._page_cold_sections({t // self.bfe}
+                                 | set(self.fixed_section_ids or ()))
 
     def export_params_ls(self) -> list[dict]:
         """One reference-format params dict per section, each with the

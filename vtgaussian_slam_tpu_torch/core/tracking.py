@@ -20,7 +20,8 @@ import torch
 from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
-from .losses import Frame, LossConfig, loss_from_render, render_slam
+from .losses import (Frame, LossConfig, compute_loss, loss_from_render,
+                     render_slam)
 from .p2p import P2PTarget, point2plane_metric
 
 
@@ -31,6 +32,7 @@ class TrackingConfig(NamedTuple):
     metric: str            # "loss" | "p2p"
     loss_cfg: LossConfig
     p2p_method: str = "sum"   # "sum" | "max" | "max100"
+    keep_hist: bool = True    # fill the per-iteration loss streams
 
 
 @dataclass
@@ -66,7 +68,8 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
     """The tracking optimization loop over a pose-differentiable renderer
     `render_fn(quat, trans) -> RenderResult`. Metric "p2p" needs the
     overlap frame's `p2p_target` and the camera. Returns (state, im_hist,
-    depth_hist) with the per-iteration loss streams."""
+    depth_hist) with the per-iteration loss streams (None, None when
+    `cfg.keep_hist` is off)."""
     if cfg.metric not in ("loss", "p2p"):
         raise ValueError(f"unknown tracking metric {cfg.metric!r}")
     if cfg.metric == "p2p":
@@ -75,8 +78,10 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
     dev = state.quat.device
     lr = torch.cat([torch.full((4,), cfg.lr_quat), torch.full((3,), cfg.lr_trans)]
                    ).to(device=dev, dtype=state.quat.dtype)
-    im_h = torch.zeros((cfg.num_iters,), device=dev)
-    d_h = torch.zeros((cfg.num_iters,), device=dev)
+    im_h = d_h = None
+    if cfg.keep_hist:
+        im_h = torch.zeros((cfg.num_iters,), device=dev)
+        d_h = torch.zeros((cfg.num_iters,), device=dev)
     s = state
     for i in range(cfg.num_iters):
         quat = s.quat.detach().requires_grad_(True)
@@ -117,8 +122,9 @@ def track_loop(render_fn, state: TrackState, frame: Frame,
                 sil_thres=out.sil_thres_out.detach(),
                 im_loss=out.im_loss.detach(),
                 depth_loss=out.depth_loss.detach())
-            im_h[i] = s.im_loss
-            d_h[i] = s.depth_loss
+            if cfg.keep_hist:
+                im_h[i] = s.im_loss
+                d_h[i] = s.depth_loss
     return s, im_h, d_h
 
 
@@ -149,3 +155,16 @@ def track_frame_cached(cache, state: TrackState, frame: Frame,
         return render_cached(cache, quat, trans, cam)
 
     return track_loop(render_fn, state, frame, aux_mask, cfg, p2p_target, cam)
+
+
+@torch.no_grad()
+def probe_loss(params: GaussianParams, active: torch.Tensor,
+               quat: torch.Tensor, trans: torch.Tensor, frame: Frame,
+               cam: Camera, cfg: LossConfig, sil_thres: float,
+               aux_mask: torch.Tensor | None = None):
+    """One loss evaluation at a pose, no step (the ScanNet++ initial-error
+    probe): (image loss, depth loss) as device scalars. Renders through
+    `compute_loss` (render_slam: K4 on the card)."""
+    out = compute_loss(params, active, quat, trans, frame, cam, cfg,
+                       quat.new_tensor(sil_thres), True, aux_mask)
+    return out.im_loss, out.depth_loss

@@ -11,8 +11,11 @@ metric .txt files, an optional metrics plot and the rendered-frame PNGs.
 `frame_metrics` scores one rendered frame; the engine's per-frame print
 (`VTGaussianSLAM.evaluate_frame`) and `eval_sequence` share it. Images and
 depths are scored in numpy on the host as the JAX package scores them;
-MS-SSIM and LPIPS run on the eval device. Mesh evaluation (`eval_recon`)
-is not ported yet.
+MS-SSIM and LPIPS run on the eval device.
+
+`eval_recon` is the mesh evaluation (eval/mesh.py): the frames rendered
+through K4, TSDF-fused and extracted on the eval device, the mesh cleaned,
+written as PLY and scored on the host.
 """
 from __future__ import annotations
 
@@ -224,6 +227,123 @@ def eval_sequence(
     print(f"Average MS-SSIM: {results['ms_ssim']:.3f}")
     print(f"Final Average ATE RMSE: {ate_rmse * 100:.2f} cm")
     return results
+
+
+def eval_recon(
+    dataset,
+    params_ls: list[dict],
+    num_frames: int,
+    eval_dir: str,
+    eval_every: int = 1,
+    baseframe_every: int = 40,
+    sil_thres: float = 0.5,
+    voxel_length: float = 5.0 / 512,
+    sdf_trunc: float = 0.04,
+    gt_mesh_path: str | None = None,
+    unseen_pc_path: str | None = None,
+    n_2d_views: int = 0,
+    backend_kwargs: dict | None = None,
+    device="cuda",
+) -> dict:
+    """Mesh reconstruction evaluation: render each evaluated frame's RGB-D
+    from its section at the estimated pose (K4 on the card), zero the
+    depth where the silhouette is at most `sil_thres`, bound the scene
+    from a stride-8 back-projection of those depths (+0.5 m), TSDF-fuse
+    every frame, extract, clean and colour the mesh, and write
+    `recon/mesh.ply`; with a GT mesh, also accuracy / completion and,
+    with `n_2d_views`, the unseen-aware 2D depth L1. The result also holds
+    `stats`: the voxel dims, the volume's state bytes, the share of pixels
+    the silhouette masked, and the render / integrate / extract / clean /
+    write seconds."""
+    import time
+
+    from .mesh import (TSDFVolume, accuracy_completion, calc_2d_metric,
+                       clean_mesh)
+    from .plyio import read_ply, write_ply
+
+    device = resolve_device(device)
+    sync = (lambda: torch.cuda.synchronize(device)
+            if device.type == "cuda" else None)
+    os.makedirs(os.path.join(eval_dir, "recon"), exist_ok=True)
+    sections, traj, render_fn = _load_sections_and_renderer(
+        params_ls, backend_kwargs, device)
+    color0, _, intrinsics, _ = dataset[0]
+    K = np.asarray(intrinsics)[:3, :3]
+    cam = setup_camera(color0.shape[1], color0.shape[0], K)
+    stats = {}
+
+    # pass 1: render the frames (kept on the host), gather the bounds
+    t0 = time.time()
+    frames, poses, pts_all, masked = [], [], [], []
+    for t in range(num_frames):
+        if t != 0 and t % eval_every != 0:
+            continue
+        sec = sections[min(t // baseframe_every, len(sections) - 1)]
+        r = render_fn(sec.params, sec.active_mask(), traj.quats[t],
+                      traj.trans[t], cam)
+        w2c = geo.pose_to_w2c(geo.normalize(traj.quats[t]), traj.trans[t]
+                              ).cpu().numpy().astype(np.float64)
+        keep = r.silhouette > sil_thres
+        im = torch.clamp(r.im.permute(1, 2, 0), 0, 1)
+        depth = r.depth[0] * keep
+        masked.append(float((~keep).float().mean()))
+        frames.append((im.cpu(), depth.cpu()))
+        poses.append(w2c)
+        z = depth[::8, ::8].cpu().numpy()
+        ys, xs = np.mgrid[0: depth.shape[0]: 8, 0: depth.shape[1]: 8]
+        x = (xs - K[0, 2]) / K[0, 0] * z
+        y = (ys - K[1, 2]) / K[1, 1] * z
+        pc = np.stack([x, y, z], -1).reshape(-1, 3)
+        c2w = np.linalg.inv(w2c)
+        pts_all.append((pc @ c2w[:3, :3].T + c2w[:3, 3])[z.reshape(-1) > 0])
+    pts_all = np.concatenate(pts_all) if pts_all else np.zeros((1, 3))
+    if pts_all.shape[0] == 0:
+        # every rendered depth was masked away: an empty reconstruction
+        pts_all = np.zeros((1, 3))
+    stats["render_s"] = time.time() - t0
+    stats["masked_share"] = float(np.mean(masked)) if masked else 0.0
+
+    vol = TSDFVolume(pts_all.min(0) - 0.5, pts_all.max(0) + 0.5,
+                     voxel_length, sdf_trunc, device=device)
+    stats["voxel_dims"] = vol.dims
+    stats["state_bytes"] = vol.state_bytes
+    sync()
+    t0 = time.time()
+    for (im, depth), w2c in zip(frames, poses):
+        vol.integrate(im, depth, K, w2c)
+    sync()
+    stats["integrate_s"] = time.time() - t0
+    stats["integrate_ms_per_frame"] = (1000 * stats["integrate_s"]
+                                       / max(len(frames), 1))
+    t0 = time.time()
+    verts, faces = vol.extract_mesh()
+    stats["extract_s"] = time.time() - t0
+    t0 = time.time()
+    verts, faces = clean_mesh(verts, faces)
+    colors = vol.vertex_colors(verts)
+    stats["clean_s"] = time.time() - t0
+    t0 = time.time()
+    mesh_path = os.path.join(eval_dir, "recon", "mesh.ply")
+    write_ply(mesh_path, verts, faces, colors)
+    stats["write_s"] = time.time() - t0
+    out = {"mesh_path": mesh_path, "n_verts": int(len(verts)),
+           "n_faces": int(len(faces))}
+
+    if gt_mesh_path is not None:
+        gt_v, gt_f, _ = read_ply(gt_mesh_path)
+        acc, comp = accuracy_completion(verts, faces, gt_v, gt_f)
+        out["accuracy_cm"] = acc * 100
+        out["completion_cm"] = comp * 100
+        if n_2d_views > 0:
+            pc_unseen = (np.load(unseen_pc_path)
+                         if unseen_pc_path else None)
+            out.update(calc_2d_metric(verts, faces, gt_v, gt_f,
+                                      pc_unseen=pc_unseen,
+                                      n_imgs=n_2d_views, device=device))
+    print("eval_recon:", {k: (round(v, 3) if isinstance(v, float) else v)
+                          for k, v in out.items()})
+    out["stats"] = stats
+    return out
 
 
 def _plot_metrics(eval_dir, psnr_list, l1_list, avg_psnr, avg_l1, ate_rmse):

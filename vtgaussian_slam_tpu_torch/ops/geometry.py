@@ -227,3 +227,17 @@ def constant_velocity_init(w2c_prev1: torch.Tensor,
     c2w2 = invert_se3(w2c_prev2)
     init_c2w = c2w1 @ invert_se3(c2w2) @ c2w1
     return invert_se3(init_c2w)
+
+
+def constant_velocity_init_multiavg(w2c_prev1: torch.Tensor,
+                                    w2c_prev2: torch.Tensor,
+                                    w2c_prev3: torch.Tensor) -> torch.Tensor:
+    """Two-step-averaged forward propagation: init_c2w = ((c2w2 inv(c2w3)
+    + c2w1 inv(c2w2)) / 2) @ c2w1, the two relative motions averaged
+    elementwise as the reference does. The average is not rigid, so the
+    result takes the general inverse, not `invert_se3`."""
+    c2w1 = invert_se3(w2c_prev1)
+    c2w2 = invert_se3(w2c_prev2)
+    c2w3 = invert_se3(w2c_prev3)
+    avg_rel = 0.5 * (c2w2 @ invert_se3(c2w3) + c2w1 @ invert_se3(c2w2))
+    return torch.linalg.inv(avg_rel @ c2w1)

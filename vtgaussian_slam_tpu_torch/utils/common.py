@@ -1,4 +1,4 @@
-"""Seeding and device selection.
+"""Seeding, device selection and the emergency params dump.
 
 Parity: `vtgaussian_slam_tpu/utils/common.py` (seed_everything). The port
 keeps explicit `torch.Generator`s for every random draw; the global seeds
@@ -30,3 +30,11 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
     return dev
+
+
+def save_params_ckpt(params: dict, output_dir: str, time_idx: int) -> str:
+    """Emergency dump of one params dict as `params<t>.npz`."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"params{time_idx}.npz")
+    np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
+    return path
