@@ -91,6 +91,22 @@ Phases (any failure raises and the exit code is non-zero):
         2e-4 once the depths are spread apart), and on tests/
         test_rasterizer.py's random scenes; `prune_gaussians` and
         `densify_split_clone` on those Gaussians give the CPU's counts;
+  2g. two-class binning: the room0 proxy as in phase 2 (5 frames) with
+     tpu.two_class_frac 0.25: the per-frame split, k_dense and the sparse
+     budget, the engine's probe readings and the probe's harm at the last
+     pose against single-class, the two-class map loop's [busy] line, and
+     the merged K1 render (tile-id operand) against the single-class K1
+     render to the bit on every tile the dense set covers (the uncovered
+     count printed);
+  2h. the tile-sharded engine: two ranks spawned on the one card over gloo
+     (two processes sharing one H100: their times are not a multi-GPU
+     speed), the room0 proxy at full width with tpu.mesh_devices 2 and
+     baseframe_every 2 for 4 frames (one boundary: the global term runs
+     sharded): rank 0's per-frame split, the all-gather / all-reduce
+     milliseconds per call and per iteration at the loops' shapes, the
+     ranks' trajectories and exports equal to the bit, and the trajectory's
+     largest difference from a one-card run of the same frames (bound
+     1e-3 m);
   3. each kernel against its plain PyTorch version on inputs captured from
      the two runs' final states (the track cache and its loss cotangent for
      K1, K2 and K6, one mapping keyframe cache and its cotangent for K3,
@@ -103,9 +119,13 @@ Phases (any failure raises and the exit code is non-zero):
      render of the ScanNet++ proxy at 584x876; K1 and K3 also
      on phase 2c's global binning (the frozen sections and the current
      one, at g_mpt) with the global term's loss cotangent, and K2 also on
-     the track cache of phase 2c's last boundary frame, each with that
-     input's own time, bound and step counts; K6, which no engine path launches,
-     also runs through `splat_blend(grad_mode="all")` under autograd, held
+     the track cache of phase 2c's last boundary frame; K1, K2 and K3 also
+     with the new operands: on phase 2g's dense and sparse classes (the
+     tile-id operand; the tracking and the mapping cache with their loss
+     cotangents) and on rank 1's tile shard of phase 2h's one-card state at
+     its nonzero tile_offset; each with that input's own time, bound and
+     step counts (and launches, for the new operands'); K6, which no
+     engine path launches, also runs through `splat_blend(grad_mode="all")` under autograd, held
      against the plain rows and against K2's dR, dt;
      for K2 where its disagreement comes from (kernel and plain f32 each
      against the plain version in f64, and the TF32 mirror of the sums);
@@ -122,7 +142,8 @@ Phases (any failure raises and the exit code is non-zero):
      raises; every kernel launched twice must give the same bits; then
      K5/K4, K2/K1 and K3/K1 of this run; with `--compare-blend DIR`, K4 of
      the `blend.cu` in DIR (another version of the source, its `walk.cuh`
-     beside it) on both of K4's inputs: whether the two outputs are equal
+     beside it, with this tree's C interface: the tile-id and tile-offset
+     operands) on both of K4's inputs: whether the two outputs are equal
      to the bit, the largest difference, and both times;
   3b. the device-busy share of the loops (`[busy]` lines): ten iterations
      each of the default tracking loop, the default mapping loop, the
@@ -132,7 +153,7 @@ Phases (any failure raises and the exit code is non-zero):
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
   4. a `{"kernels": [...]}` line (launches: the sum over the engine runs,
-     phase 2e's evaluations and CLI runs and phase 2f); the card line; and
+     phase 2e's evaluations and CLI runs and phases 2f-2h); the card line; and
      as the
      last line
      `{"ok": true, "device": {...}}`.
@@ -163,6 +184,10 @@ RESUME_FROM = 5       # phase 2c saves after frame 5; 2f-a resumes there
 PROGRESS_FRAMES = 3   # phase 2f-b
 PP_FRAMES = 6         # phase 2f-c: the ScanNet++ proxy
 DENSE_N, DENSE_HW = 20000, 128    # phase 2f-e
+TWO_CLASS_FRAC = 0.25                # phase 2g
+SHARDED_BFE, SHARDED_FRAMES, SHARDED_RANKS = 2, 4, 2   # phase 2h
+SHARDED_WORKDIR = os.path.join(REPO, "build", "chip_smoke_2h")
+SHARDED_TIMEOUT_S = 600
 # the JAX package's final numbers on the synthetic configs (PARITY.md,
 # round 5, on a TPU v5e; MS-SSIM from round 2; LPIPS not recorded), and
 # the spread of its recorded runs (rounds 1-5) that the port should land in
@@ -632,13 +657,15 @@ def walk_counts(walked, kept, blended, box):
     return [int(v) for v in vals]
 
 
-def splat_work(slots8, counts, cp, tiles_x):
-    """`walk_counts` of the splat kernels on these inputs, over all tiles."""
+def splat_work(slots8, counts, cp, tiles_x, tile_ids=None):
+    """`walk_counts` of the splat kernels on these inputs, over all tiles;
+    `tile_ids`: the image tile of each row (default the row)."""
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
     n = [0] * len(WORK_KEYS)
     for ids in batched(slots8.shape[0], 128):
-        w = cs._walk(slots8[ids], counts[ids], cp, tiles_x, ids)
-        box = cs.slot_box(slots8[ids], cp, tiles_x, ids, w["q"])
+        tid = ids if tile_ids is None else tile_ids[ids].long()
+        w = cs._walk(slots8[ids], counts[ids], cp, tiles_x, tid)
+        box = cs.slot_box(slots8[ids], cp, tiles_x, tid, w["q"])
         got = walk_counts(w["walked"], w["keep"], w["keep"] & w["include"],
                           box)
         n = [a + b for a, b in zip(n, got)]
@@ -700,8 +727,8 @@ def other_blend_forward(src_dir):
     def run(recs, counts, tiles_x, n_channels):
         out = torch.empty((recs.shape[0], 256, n_channels),
                           dtype=torch.float32, device=recs.device)
-        err = fn(recs.data_ptr(), counts.data_ptr(), recs.shape[0],
-                 recs.shape[2], tiles_x, n_channels, out.data_ptr(),
+        err = fn(recs.data_ptr(), counts.data_ptr(), None, recs.shape[0],
+                 recs.shape[2], tiles_x, 0, n_channels, out.data_ptr(),
                  _build.stream_of(recs))
         if err:
             raise RuntimeError(f"{src_dir}: vtgs_blend_fwd CUDA error {err}")
@@ -1253,6 +1280,524 @@ def phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
     return {"launches": launches, "probe": probe}
 
 
+def class_accums(slots, counts, tids, merge, R9, trans, cam, tiles_x):
+    """K1 of each two-class class (tile-id operand) and their merge."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    accs = [cs.splat_forward(s, R9, trans, c, cam, tiles_x, i)
+            for s, c, i in zip(slots, counts, tids)]
+    return accs, torch.cat(accs)[merge]
+
+
+def loss_cotangent(accum, frame, cam, lcfg, tracking, radii=None):
+    """The tracking (silhouette threshold 0.99, first iteration) or mapping
+    loss's cotangent of a (T, 8, 256) accum, as the loops take it."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.losses import (RenderResult,
+                                                       loss_from_render)
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    acc_v = accum.detach().requires_grad_(True)
+    img = cs.assemble_image(acc_v, cam)
+    r = RenderResult(im=img[:3], depth=img[3:4], silhouette=img[4],
+                     depth_sq=img[5:6],
+                     radii=img.new_zeros((1,)) if radii is None else radii)
+    out = loss_from_render(r, frame, lcfg, 0.99 if tracking else 0.5,
+                           tracking)
+    (g,) = torch.autograd.grad(out.loss, (acc_v,))
+    return g.contiguous()
+
+
+def two_class_phase(wrappers, valid0):
+    """2g: the room0 proxy with tpu.two_class_frac for NUM_FRAMES frames:
+    the split, k_dense and the sparse budget, the probe's readings, the
+    two-class map loop's [busy] line, and the merged K1 render against the
+    single-class one to the bit wherever the dense set covers; returns the
+    launches and phase 3's inputs (each class's slots, counts, tile ids
+    and loss cotangent rows, for the tracking and the mapping cache)."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.map_cache import (pack_fields8,
+                                                          trunc_probe)
+    from vtgaussian_slam_tpu_torch.core.mapping import (KeyframeBuffer,
+                                                        MappingConfig,
+                                                        map_frame_binned)
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.core.track_cache import (
+        build_track_cache, build_track_cache_2c)
+    from vtgaussian_slam_tpu_torch.ops import geometry as geo
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
+        gather_channels
+    tag = "two-class"
+    config = room0_proxy_config()
+    config["tpu"]["two_class_frac"] = TWO_CLASS_FRAC
+    config["tracking"]["base1_num_iters"] = TRACK_ITERS
+    config["mapping"]["num_iters"] = MAP_ITERS
+    eng = VTGaussianSLAM(config, device="cuda")
+    cam = eng.cam
+    tiles_x = -(-cam.width // 16)
+    n_tiles = tiles_x * (-(-cam.height // 16))
+    assert eng._k_dense > 0, eng._k_dense
+    launches, _ = run_frames(eng, NUM_FRAMES, wrappers, valid0, tag)
+    missing = [k for k in ("K1", "K2", "K3", "K4") if launches[k] <= 0]
+    assert not missing, f"kernels never launched on the two-class path: {missing}"
+    bk = eng.backend_kwargs
+    mpt = bk["max_pairs_per_tile"]
+    mpt_s = max(128, mpt // eng._two_class_div)
+    probes = "; ".join(f"mpt {m} harm {h:.5f} -> boost {b}"
+                       for m, h, b in eng.probe_log) or "none read"
+    print(f"[{tag}] tpu.two_class_frac {eng._two_class_frac}: k_dense "
+          f"{eng._k_dense} of {n_tiles} tiles at mpt {mpt}, the rest at mpt_s "
+          f"{mpt_s} (mpt // {eng._two_class_div}); the engine's probe "
+          f"readings (the two-class point against single-class 4 mpt): "
+          f"{probes}")
+    t = NUM_FRAMES - 1
+    sec = eng.sections[0]
+    active = sec.active_mask()
+    quat, trans = eng.traj.quats[t].clone(), eng.traj.trans[t].clone()
+    harm2 = float(trunc_probe(sec.params, active, quat, trans, cam,
+                              span_cap=bk["span_cap"], mpt=mpt,
+                              select=eng._bin_select, k_dense=eng._k_dense,
+                              sparse_div=eng._two_class_div))
+    harm1 = float(trunc_probe(sec.params, active, quat, trans, cam,
+                              span_cap=bk["span_cap"], mpt=mpt,
+                              select=eng._bin_select))
+    print(f"[{tag}] truncation harm at frame {t}'s pose: two-class "
+          f"{harm2:.5f}, single-class at mpt {mpt} {harm1:.5f}")
+    mp_cfg = config["mapping"]
+    mcfg = MappingConfig(
+        num_iters=BUSY_ITERS,
+        lrs=tuple(sorted((k, float(v)) for k, v in mp_cfg["lrs"].items()
+                         if k not in ("cam_unnorm_rots", "cam_trans"))),
+        loss_cfg=eng._loss_cfg(False), use_global=False)
+    kf = KeyframeBuffer(colors=eng.ring_colors, depths=eng.ring_depths,
+                        count=len(eng.map_store.ring_of_slot))
+    busy_line("two-class map", lambda: map_frame_binned(
+        sec.params, kf, eng.map_store.slots, list(eng.map_store.ring_of_slot),
+        cam, mcfg, generator=eng.map_generator))
+
+    # the tracking cache at the committed pose: both classes and the
+    # single-class cache at mpt
+    R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
+    kw = dict(span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
+              select=eng._bin_select)
+    tc2 = build_track_cache_2c(sec.params, active, quat, trans, cam,
+                               mpt_sparse=mpt_s, k_dense=eng._k_dense, **kw)
+    tc1 = build_track_cache(sec.params, active, quat, trans, cam,
+                            chunk=bk["chunk"], **kw)
+    slots_t = (tc2.slots_d, tc2.slots_s)
+    counts_t = (tc2.counts_d, tc2.counts_s)
+    tids_t = (tc2.tids_d, tc2.tids_s)
+    accs_t, merged = class_accums(slots_t, counts_t, tids_t, tc2.merge, R9,
+                                  trans, cam, tiles_x)
+    single = cs.splat_forward(tc1.slots8, R9, trans, tc1.counts, cam, tiles_x)
+    # a sparse tile with more than mpt_s pairs is binned at mpt_s, not mpt
+    sparse = torch.zeros(n_tiles, dtype=torch.bool, device=merged.device)
+    sparse[tc2.tids_s[tc2.counts_s > 0].long()] = True
+    uncovered = sparse & (tc1.counts[:n_tiles] > mpt_s)
+    same = torch.equal(merged[~uncovered], single[:n_tiles][~uncovered])
+    print(f"[{tag}] merged K1 render (dense {tc2.slots_d.shape[0]} rows x "
+          f"{tc2.slots_d.shape[2]} slots, sparse {tc2.slots_s.shape[0]} x "
+          f"{tc2.slots_s.shape[2]}) against single-class K1 at mpt {mpt}: "
+          f"uncovered tiles (sparse, over mpt_s) {int(uncovered.sum())}; "
+          f"equal to the bit on the {int((~uncovered).sum())} covered "
+          f"tiles: {same}")
+    if not same:
+        raise AssertionError(f"[{tag}] the two-class split moved a covered "
+                             f"tile's render")
+    frame = eng._stage(*eng.dataset[t][:2])
+    g = loss_cotangent(merged, frame, cam, eng._loss_cfg(True), True,
+                       tc2.radii)
+    g_t = [g[i.long()].contiguous() for i in tids_t]
+
+    # the newest mapping cache, both classes, with its mapping cotangent
+    kfc = eng.map_store.slots[-1]
+    ring = eng.map_store.ring_of_slot[-1]
+    kR9 = geo.quat_to_rotmat(geo.normalize(kfc.quat)).reshape(9)
+    f8 = pack_fields8(sec.params)
+    slots_m = (gather_channels(f8, kfc.tab_d), gather_channels(f8, kfc.tab_s))
+    counts_m = (kfc.counts_d, kfc.counts_s)
+    tids_m = (kfc.tids_d, kfc.tids_s)
+    accs_m, merged_m = class_accums(slots_m, counts_m, tids_m, kfc.merge, kR9,
+                                    kfc.trans, cam, tiles_x)
+    kframe = type(frame)(color=eng.ring_colors[ring],
+                         depth=eng.ring_depths[ring])
+    g = loss_cotangent(merged_m, kframe, cam, eng._loss_cfg(False), False)
+    g_m = [g[i.long()].contiguous() for i in tids_m]
+    return dict(launches=launches, cam=cam, R9=R9, trans=trans,
+                track=(slots_t, counts_t, tids_t, accs_t, g_t),
+                map=(slots_m, counts_m, tids_m, accs_m, g_m, kR9, kfc.trans))
+
+
+def splat_inputs(tag, slots, counts, R9, trans, cam, tiles_x, accum, g,
+                 launches, tile_ids=None, tile_offset=0):
+    """Phase 3's entries of K1, K2 and K3 for one input whose rows render
+    the image tiles `tile_ids` (or row + `tile_offset`): the kernel with
+    those operands, its plain version on the picked rows, the bytes and the
+    walk's work (counted once); `launches`: the phase's launch counts."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    T, _, M = slots.shape
+    cp = cs.cp_vector(R9, trans, cam)
+    img = (tile_ids.long() if tile_ids is not None
+           else torch.arange(T, device=slots.device) + tile_offset)
+    kw = dict(tile_ids=tile_ids, tile_offset=tile_offset)
+    work = {}
+
+    def get_work():
+        if not work:
+            work.update(splat_work(slots, counts, cp, tiles_x, img))
+        return work
+
+    args = (slots, R9, trans, counts, accum, g, cam, tiles_x)
+    plain_args = lambda ids: (slots[ids], counts[ids], cp, tiles_x,
+                              accum[ids], g[ids], img[ids])
+    common = dict(tag=tag, counts=counts, work=get_work)
+    return {
+        "K1": dict(common, launches=launches["K1"],
+                   kernel=lambda: cs.splat_forward(*args[:4], cam, tiles_x,
+                                                   **kw),
+                   plain=lambda ids: cs.splat_forward_plain(
+                       slots[ids], counts[ids], cp, tiles_x, img[ids]),
+                   bytes=lambda s: s * 8 * 4 + 2 * T * 4 + T * 8 * 256 * 4),
+        "K2": dict(common, launches=launches["K2"],
+                   kernel=lambda: cs.splat_backward_pose(*args, **kw),
+                   plain=lambda ids: cs.splat_backward_pose_plain(
+                       *plain_args(ids)),
+                   bytes=lambda s: (s * 8 * 4 + 2 * T * 4
+                                    + 2 * T * 8 * 256 * 4 + T * 12 * 4)),
+        "K3": dict(common, launches=launches["K3"],
+                   kernel=lambda: cs.splat_backward_vals_rows(*args, **kw),
+                   plain=lambda ids: cs.splat_backward_vals_rows_plain(
+                       *plain_args(ids)),
+                   bytes=lambda s: (s * 8 * 4 + 2 * T * 4
+                                    + 2 * T * 8 * 256 * 4 + T * M * 8 * 4))}
+
+
+def shard_inputs(eng, launches, cam, tiles_x):
+    """Rank 1's tile shard of the last frame of phase 2h's one-card run, as
+    the sharded loops hand it to the kernels: the tracking cache and the
+    frame's mapping cache padded to tile_pad_for(SHARDED_RANKS) rows, rows
+    [lo, Tp) at tile_offset lo, with the loss cotangents' rows; returns
+    (tracking entries, mapping entries) of `splat_inputs`."""
+    from vtgaussian_slam_tpu_torch.core.map_cache import (build_kf_cache,
+                                                          pack_fields8)
+    from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
+    from vtgaussian_slam_tpu_torch.ops import geometry as geo
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
+        gather_channels
+    from vtgaussian_slam_tpu_torch.parallel.engine import tile_pad_for
+    t = SHARDED_FRAMES - 1
+    sec = eng._resident(eng.section_ids[t])
+    active = sec.active_mask()
+    q, tr = eng.traj.quats[t].clone(), eng.traj.trans[t].clone()
+    R9 = geo.quat_to_rotmat(geo.normalize(q)).reshape(9)
+    bk, pad = eng.backend_kwargs, tile_pad_for(SHARDED_RANKS)
+    frame = eng._stage(*eng.dataset[t][:2])
+    tc = build_track_cache(sec.params, active, q, tr, cam,
+                           span_cap=bk["span_cap"],
+                           max_pairs_per_tile=bk["max_pairs_per_tile"],
+                           chunk=bk["chunk"], tile_pad=pad,
+                           select=eng._bin_select)
+    kc = build_kf_cache(sec.params, active, q, tr, cam,
+                        span_cap=eng.map_backend_kwargs["span_cap"],
+                        max_pairs_per_tile=eng.map_backend_kwargs[
+                            "max_pairs_per_tile"], tile_pad=pad,
+                        select=eng._bin_select)
+    out = []
+    for slots, counts, lcfg, tracking in (
+            (tc.slots8, tc.counts, eng._loss_cfg(True), True),
+            (gather_channels(pack_fields8(sec.params), kc.tab), kc.counts,
+             eng._loss_cfg(False), False)):
+        full = cs.splat_forward(slots, R9, tr, counts, cam, tiles_x)
+        g = loss_cotangent(full, frame, cam, lcfg, tracking)
+        lo = slots.shape[0] // SHARDED_RANKS * (SHARDED_RANKS - 1)
+        acc = cs.splat_forward(slots[lo:], R9, tr, counts[lo:], cam, tiles_x,
+                               tile_offset=lo)
+        out.append(splat_inputs(
+            f"rank {SHARDED_RANKS - 1}'s tile shard, rows {lo}-"
+            f"{slots.shape[0] - 1} at tile_offset {lo} (phase 2h "
+            f"{'tracking' if tracking else 'mapping'} cache)", slots[lo:],
+            counts[lo:], R9, tr, cam, tiles_x, acc, g[lo:].contiguous(),
+            launches, tile_offset=lo))
+    return out
+
+
+def sharded_config(mesh_devices):
+    """The room0 proxy at full width, baseframe_every SHARDED_BFE, on
+    `mesh_devices` ranks."""
+    config = room0_proxy_config()
+    config["baseframe_every"] = SHARDED_BFE
+    config["tracking"]["base1_num_iters"] = TRACK_ITERS
+    config["mapping"]["num_iters"] = MAP_ITERS
+    config["tpu"]["mesh_devices"] = mesh_devices
+    return config
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Wall milliseconds per call of fn, the card synchronised around the
+    calls (a collective's time includes its copies through the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / iters * 1e3
+
+
+def shard_check(eng):
+    """On a rank's final state: the sharded tracking render and its pose
+    gradient, and the sharded keyframe render (the newest mapping cache)
+    and its field gradient, against the one-card ones computed in the same
+    process: whether the renders are equal to the bit, the losses'
+    difference and the gradients' largest difference over their largest
+    entry."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.losses import loss_from_render
+    from vtgaussian_slam_tpu_torch.core.map_cache import (accum_to_result,
+                                                          pack_fields8,
+                                                          splat_binned)
+    from vtgaussian_slam_tpu_torch.core.track_cache import (build_track_cache,
+                                                            render_cached)
+    from vtgaussian_slam_tpu_torch.parallel import engine as pe
+    t = SHARDED_FRAMES - 1
+    cam, group, bk = eng.cam, eng.group, eng.backend_kwargs
+    sec = eng._resident(eng.section_ids[t])
+    q, tr = eng.traj.quats[t].clone(), eng.traj.trans[t].clone()
+    tc = build_track_cache(sec.params, sec.active_mask(), q, tr, cam,
+                           span_cap=bk["span_cap"],
+                           max_pairs_per_tile=bk["max_pairs_per_tile"],
+                           chunk=bk["chunk"], tile_pad=eng.tile_pad,
+                           select=eng._bin_select)
+    frame = eng._stage(*eng.dataset[t][:2])
+    outs = []
+    for render in (lambda a, b: pe.render_cached_sharded(tc, a, b, cam, group),
+                   lambda a, b: render_cached(tc, a, b, cam)):
+        qv = q.detach().clone().requires_grad_(True)
+        tv = tr.detach().clone().requires_grad_(True)
+        r = render(qv, tv)
+        out = loss_from_render(r, frame, eng._loss_cfg(True), 0.99, True)
+        g = torch.cat(torch.autograd.grad(out.loss, (qv, tv)))
+        outs.append((r.im.detach(), out.loss.detach(), g))
+    res = {"track_render_equal": torch.equal(outs[0][0], outs[1][0]),
+           "track_loss_diff": float((outs[0][1] - outs[1][1]).abs()),
+           "track_grad_err": float((outs[0][2] - outs[1][2]).abs().max()
+                                   / outs[1][2].abs().max())}
+    msec = eng.sections[t // eng.bfe]
+    kfc = eng.map_store.slots[-1]
+    ring = eng.map_store.ring_of_slot[-1]
+    kframe = type(frame)(color=eng.ring_colors[ring],
+                         depth=eng.ring_depths[ring])
+    f8 = pack_fields8(msec.params)
+    outs = []
+    for render in (lambda v: pe.splat_binned_sharded(
+            v, kfc.tab, kfc.inv, kfc.quat, kfc.trans, kfc.counts, cam, group),
+                   lambda v: splat_binned(v, kfc.tab, kfc.inv, kfc.quat,
+                                          kfc.trans, kfc.counts, cam)):
+        v8 = f8.detach().clone().requires_grad_(True)
+        r = accum_to_result(render(v8), cam)
+        out = loss_from_render(r, kframe, eng._loss_cfg(False), 0.5, False)
+        (g,) = torch.autograd.grad(out.loss, (v8,))
+        outs.append((r.im.detach(), out.loss.detach(), g))
+    res.update(
+        map_render_equal=torch.equal(outs[0][0], outs[1][0]),
+        map_loss_diff=float((outs[0][1] - outs[1][1]).abs()),
+        map_grad_err=float((outs[0][2] - outs[1][2]).abs().max()
+                           / outs[1][2].abs().max()))
+    return res
+
+
+def order_sensitivity(ref):
+    """Per-frame largest translation difference between the one-card run
+    `ref` of phase 2h's frames and the same run with every field
+    gradient's inverse-map columns added in the opposite order."""
+    import numpy as np
+    import torch
+    from vtgaussian_slam_tpu_torch.core import map_cache
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    apply = map_cache.apply_slot_inverse
+    map_cache.apply_slot_inverse = lambda flat, inv: apply(
+        flat, map_cache.SlotInv(inv.pos.flip(1), inv.w.flip(1)))
+    try:
+        eng = VTGaussianSLAM(sharded_config(1), device="cuda")
+        for t in range(SHARDED_FRAMES):
+            eng.process_frame(t)
+        torch.cuda.synchronize()
+    finally:
+        map_cache.apply_slot_inverse = apply
+    n = SHARDED_FRAMES
+    return np.abs(eng.traj.trans[:n].cpu().numpy()
+                  - ref.traj.trans[:n].cpu().numpy()).max(1)
+
+
+def sharded_rank(rank, world, port, out_dir):
+    """One rank of phase 2h (a spawned process): join the gloo group on
+    cuda:0, run SHARDED_FRAMES frames of the sharded engine with the kernel
+    counts zeroed, time the loops' collectives at their shapes, and save
+    the trajectory, the export, the frame split and the counts."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    from vtgaussian_slam_tpu_torch.parallel import engine as pe
+    pe.init_process_group(rank, world, "cuda:0", "gloo",
+                          f"tcp://localhost:{port}", timeout_s=300)
+    try:
+        wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
+                    "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
+                    "K5": cb.blend_backward, "K6": cs.splat_backward_all}
+        eng = VTGaussianSLAM(sharded_config(world), device="cuda:0")
+        zeroed(wrappers)
+        t0 = time.time()
+        for t in range(SHARDED_FRAMES):
+            eng.process_frame(t)
+        eng._page_cold_finish()
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = read_counts(wrappers)
+        group = eng.group
+        n_tiles = (-(-eng.cam.height // 16)) * (-(-eng.cam.width // 16))
+        Tp = -(-n_tiles // eng.tile_pad) * eng.tile_pad
+        Tl = Tp // world
+        mpt = eng.map_store.slots[-1].tab.shape[1]
+        z = lambda *shape: torch.zeros(shape, device=eng.device)
+        ms = {k: host_ms(lambda x=x: pe.all_gather_rows(x, group))
+              for k, x in (("accum", z(Tl, 8, 256)), ("pose", z(Tl, 12)),
+                           ("rows", z(Tl, mpt, 8)))}
+        check = shard_check(eng)
+        out = dict(quats=eng.traj.quats[:SHARDED_FRAMES].cpu().numpy(),
+                   trans=eng.traj.trans[:SHARDED_FRAMES].cpu().numpy(),
+                   run_s=np.array(run_s), mpt=np.array(mpt), tp=np.array(Tp),
+                   frame_times=np.array(json.dumps(
+                       [eng.frame_times[t] for t in range(SHARDED_FRAMES)])),
+                   launches=np.array(json.dumps(launches)),
+                   ms=np.array(json.dumps(ms)),
+                   check=np.array(json.dumps(check)),
+                   n_active=np.array([s.n_active for s in eng.sections]),
+                   fixed=np.array(eng.fixed_section_ids))
+        for i, sec in enumerate(eng.export_params_ls()):
+            for k, v in sec.items():
+                out[f"sec{i}_{k}"] = v
+        eng.close()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def sharded_phase(wrappers):
+    """2h: SHARDED_RANKS ranks of the tile-sharded engine sharing the one
+    card over gloo (two processes on one card: their times are not a
+    multi-GPU speed), the room0 proxy for SHARDED_FRAMES frames across a
+    boundary; the ranks' trajectories and exports equal to the bit, the
+    trajectory within 1e-3 m of a one-card run of the same frames.
+    Returns the ranks' summed launches and the one-card engine."""
+    import shutil
+    import socket
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    tag = "sharded"
+    shutil.rmtree(SHARDED_WORKDIR, ignore_errors=True)
+    os.makedirs(SHARDED_WORKDIR)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.time()
+    ctx = mp.start_processes(sharded_rank, args=(SHARDED_RANKS, port,
+                                                 SHARDED_WORKDIR),
+                             nprocs=SHARDED_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.time() + SHARDED_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                raise TimeoutError(f"[{tag}] the ranks did not finish "
+                                   f"within {SHARDED_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    wall = time.time() - t0
+    ranks = [dict(np.load(os.path.join(SHARDED_WORKDIR, f"rank{r}.npz")))
+             for r in range(SHARDED_RANKS)]
+    r0 = ranks[0]
+    print(f"[{tag}] {SHARDED_RANKS} ranks on one card over gloo (two "
+          f"processes sharing one H100: these times are not a multi-GPU "
+          f"speed): {SHARDED_FRAMES} frames in {float(r0['run_s']):.2f} s "
+          f"of rank 0's clock ({wall:.1f} s with the processes' start), "
+          f"baseframe_every {SHARDED_BFE}, tables padded to {int(r0['tp'])} "
+          f"rows, fixed_section_ids {tuple(r0['fixed'].tolist())}, n_active "
+          f"{r0['n_active'].tolist()}")
+    for t, ft in enumerate(json.loads(str(r0["frame_times"]))):
+        print(f"[{tag} frame {t}] track {ft['track']:.3f} s spawn "
+              f"{ft['spawn']:.3f} s densify {ft['densify']:.3f} s map "
+              f"{ft['map']:.3f} s")
+    ms = json.loads(str(r0["ms"]))
+    tl = int(r0["tp"]) // SHARDED_RANKS
+    print(f"[{tag}] all-gathers (rank 0's clock, the card synchronised; "
+          f"gloo copies through the host), ms per call: a rank's accum rows "
+          f"({tl}, 8, 256) {ms['accum']:.3f}, its K2 pose partials ({tl}, "
+          f"12) {ms['pose']:.3f}, its K3 rows ({tl}, {int(r0['mpt'])}, 8) "
+          f"{ms['rows']:.3f}; per iteration: tracking "
+          f"{ms['accum'] + ms['pose']:.3f} ms (one of each), mapping "
+          f"{ms['accum'] + ms['rows']:.3f} ms (twice that on an iteration "
+          f"with the global term's gradient)")
+    ck = json.loads(str(r0["check"]))
+    print(f"[{tag}] rank 0's final state, sharded against one card in the "
+          f"same process: tracking render equal to the bit "
+          f"{ck['track_render_equal']}, loss difference "
+          f"{ck['track_loss_diff']:.3e}, pose gradient largest difference "
+          f"{ck['track_grad_err']:.3e} of its largest entry; keyframe render "
+          f"equal to the bit {ck['map_render_equal']}, loss difference "
+          f"{ck['map_loss_diff']:.3e}, field gradient "
+          f"{ck['map_grad_err']:.3e}")
+    keys = sorted(r0)
+    unequal = [k for k in keys if k not in ("run_s", "frame_times", "ms")
+               and not np.array_equal(r0[k], ranks[1][k])]
+    print(f"[{tag}] ranks' trajectories, exports and counts equal to the "
+          f"bit: {not unequal} {unequal or ''}")
+    if unequal:
+        raise AssertionError(f"[{tag}] the ranks parted: {unequal}")
+    eng1 = VTGaussianSLAM(sharded_config(1), device="cuda")
+    for t in range(SHARDED_FRAMES):
+        eng1.process_frame(t)
+    torch.cuda.synchronize()
+    d = np.abs(r0["trans"] - eng1.traj.trans[:SHARDED_FRAMES].cpu().numpy())
+    dq = np.abs(r0["quats"] - eng1.traj.quats[:SHARDED_FRAMES].cpu().numpy())
+    print(f"[{tag}] trajectory against a one-card run of the same frames: "
+          f"max translation difference {d.max():.3e} m (bound 1e-3; per frame "
+          f"{[f'{x:.2e}' for x in d.max(1)]}), max quaternion difference "
+          f"{dq.max():.3e}, equal to the bit {d.max() == 0 and dq.max() == 0}"
+          f"; one-card n_active {[s.n_active for s in eng1.sections]}")
+    if not d.max() <= 1e-3:
+        raise AssertionError(f"[{tag}] the sharded trajectory parts from the "
+                             f"one-card run by {d.max():.3e} m")
+    # why the sharded backwards gather rows rather than sum partials: the
+    # one-card run with the field gradient's inverse-map columns added in
+    # the opposite order (the kind of rounding change partial sums make)
+    d_rev = order_sensitivity(eng1)
+    print(f"[{tag}] the one-card run with the field gradient's inverse-map "
+          f"columns added in the opposite order parts from it by "
+          f"{[f'{x:.2e}' for x in d_rev]} m per frame: the mapping loop "
+          f"turns rounding into trajectory, so the sharded backwards keep "
+          f"the one-card summation order")
+    launches = {k: 0 for k in wrappers}
+    for r in ranks:
+        for k, v in json.loads(str(r["launches"])).items():
+            launches[k] += v
+    print(f"[{tag}] launches (both ranks) {launches}")
+    missing = [k for k in ("K1", "K2", "K3", "K4") if launches[k] <= 0]
+    assert not missing, f"kernels never launched on the sharded path: {missing}"
+    return dict(launches=launches, engine=eng1)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1464,16 +2009,28 @@ def main() -> int:
     f = phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
                  wrappers)
 
+    # ---- phase 2g: two-class binning ------------------------------------
+    t0 = time.time()
+    g2 = two_class_phase(wrappers, valid0)
+    print(f"[2g] {time.time() - t0:.1f} s")
+    # ---- phase 2h: the tile-sharded engine, two ranks on the card -------
+    t0 = time.time()
+    h2 = sharded_phase(wrappers)
+    print(f"[2h] {time.time() - t0:.1f} s")
+
     runs = (launches1, launches2, launches3, launches4, launches_e1,
-            launches_e2, *cli_runs, *f["launches"].values())
+            launches_e2, *cli_runs, *f["launches"].values(), g2["launches"],
+            h2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in wrappers}
     print(f"[launches] slice {launches1}; generic route {launches2}; "
           f"boundaries {launches3}; generic boundary {launches4}; phase 2c "
           f"eval at the training budget {launches_e1}, at the eval_mode "
           f"budget {launches_e2}; CLI smoke, medium, medium eval_mode x2 "
-          f"{cli_runs}; phase 2f {f['launches']}; K6 launches on the engine "
-          f"paths: {launches['K6']} (no engine path calls splat_blend's "
-          f"\"all\" mode)")
+          f"{cli_runs}; phase 2f {f['launches']}; phase 2g (two-class) "
+          f"{g2['launches']}; phase 2h (sharded, both ranks) "
+          f"{h2['launches']}; K6 launches on the engine paths: "
+          f"{launches['K6']} (no engine path calls splat_blend's \"all\" "
+          f"mode)")
 
     # ---- phase 3: kernels against plain, on the slice's inputs ---------
     cam = engine.cam
@@ -1606,6 +2163,22 @@ def main() -> int:
     cp_b = cs.cp_vector(R9b, tr_b, cam)
     T_b = slots_b.shape[0]
 
+    # K1-K3 with the new operands: phase 2g's classes (tile ids) and rank
+    # 1's tile shard of phase 2h's one-card state (tile offset)
+    slots_t2, counts_t2, tids_t2, accs_t2, g_t2 = g2["track"]
+    slots_m2, counts_m2, tids_m2, accs_m2, g_m2, kR9_2, ktr_2 = g2["map"]
+    tr2 = [splat_inputs(f"two-class {c} rows (phase 2g tracking cache, "
+                        f"tile ids)", slots_t2[i], counts_t2[i], g2["R9"],
+                        g2["trans"], cam, tiles_x, accs_t2[i], g_t2[i],
+                        g2["launches"], tile_ids=tids_t2[i])
+           for i, c in enumerate(("dense", "sparse"))]
+    mp2 = [splat_inputs(f"two-class {c} rows (phase 2g mapping cache, "
+                        f"tile ids)", slots_m2[i], counts_m2[i], kR9_2, ktr_2,
+                        cam, tiles_x, accs_m2[i], g_m2[i], g2["launches"],
+                        tile_ids=tids_m2[i])
+           for i, c in enumerate(("dense", "sparse"))]
+    sh_t, sh_m = shard_inputs(h2["engine"], h2["launches"], cam, tiles_x)
+
     cp_t = cs.cp_vector(R9, trans, cam)
     cp_m = cs.cp_vector(kR9, kfc.trans, cam)
     T_t, M_t = slots_t.shape[0], slots_t.shape[2]
@@ -1669,7 +2242,8 @@ def main() -> int:
                 plain=lambda ids: cs.splat_forward_plain(
                     slots_g[ids], gc3.counts[ids], cp_g, tiles_x, ids),
                 bytes=lambda s: s * 8 * 4 + T_g * 4 + T_g * 8 * 256 * 4,
-                work=lambda: work_g)]),
+                work=lambda: work_g), tr2[0]["K1"], tr2[1]["K1"],
+                sh_t["K1"]]),
         "K2": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -1692,7 +2266,8 @@ def main() -> int:
                     g_b[ids], ids),
                 bytes=lambda s: (s * 8 * 4 + T_b * 4 + 2 * T_b * 8 * 256 * 4
                                  + T_b * 12 * 4),
-                work=lambda: splat_work(slots_b, counts_b, cp_b, tiles_x))]),
+                work=lambda: splat_work(slots_b, counts_b, cp_b, tiles_x)),
+                tr2[0]["K2"], tr2[1]["K2"], sh_t["K2"]]),
         "K3": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -1716,7 +2291,8 @@ def main() -> int:
                     accum_g[ids], g_g[ids], ids),
                 bytes=lambda s: (s * 8 * 4 + T_g * 4 + 2 * T_g * 8 * 256 * 4
                                  + T_g * M_g * 8 * 4),
-                work=lambda: work_g)]),
+                work=lambda: work_g), mp2[0]["K3"], mp2[1]["K3"],
+                sh_m["K3"]]),
         "K4": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:246",
@@ -1833,7 +2409,8 @@ def main() -> int:
               f"{launches4[name]}, phase 2e evaluations "
               f"{launches_e1[name] + launches_e2[name]}, CLI runs "
               f"{sum(r[name] for r in cli_runs)}, phase 2f "
-              f"{sum(r[name] for r in f['launches'].values())})")
+              f"{sum(r[name] for r in f['launches'].values())}, phase 2g "
+              f"{g2['launches'][name]}, phase 2h {h2['launches'][name]})")
         if name != "K6":    # K6 walks K2's inputs
             steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
         row = {"name": name, "route": sp["route"],

@@ -15,6 +15,7 @@ from torch_port_util import (POSE_Q, POSE_T, TILES_X, assert_close_scaled, np_,
                              torch_params)
 from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
+from vtgaussian_slam_tpu_torch.ops.rasterizer import binning as B
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
 from vtgaussian_slam_tpu_torch.utils.common import resolve_device
@@ -258,6 +259,142 @@ def test_splat_blend_all_mode_matches_cpu_autograd(card):
                 assert_close_scaled(a[:, row], b[:, row], 1e-3, f"slots {row}")
         else:
             assert_close_scaled(a, b, 1e-3, what)
+
+
+def _tile_id_case(how):
+    """The track-cache case (9 tiles) with its rows rearranged: "tids", the
+    rows permuted with their image tiles in the tile-id operand; "offset",
+    rows 4-8 alone at tile_offset 4; both with 3 padded rows appended
+    (count 0, tile 0, slots and cotangent rows of row 0), as two-class
+    tables and tile-sharded caches pad. Returns (slots, counts, tids,
+    offset, R9, t, g)."""
+    slots, counts, R9, t, g = _case("cpu", seed=2)
+    if how == "tids":
+        perm = torch.as_tensor(np.random.default_rng(3).permutation(9))
+        slots, counts, g = slots[perm], counts[perm], g[perm]
+        tids, off = perm.to(torch.int32), 0
+    else:
+        slots, counts, g = slots[4:], counts[4:], g[4:]
+        tids, off = None, 4
+    pad = lambda x, fill: torch.cat([x, fill.expand(3, *x.shape[1:])])
+    slots = pad(slots, slots[:1]).contiguous()
+    counts = pad(counts, torch.zeros(1, dtype=torch.int32)).contiguous()
+    g = pad(g, g[:1]).contiguous()
+    if tids is not None:
+        tids = pad(tids, torch.zeros(1, dtype=torch.int32)).contiguous()
+    return slots, counts, tids, off, R9, t, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["tids", "offset"])
+def test_splat_kernels_with_tile_ids_and_offset_match_plain(card, how):
+    """K1, K2, K3 and K6 with the tile-id operand and a nonzero tile offset
+    against their plain versions; the padded rows (count 0) give exact
+    zeros under a nonzero cotangent, and K1's T_end 1 there."""
+    cam = torch_cam()
+    slots, counts, tids, off, R9, t, g = _tile_id_case(how)
+    kw = dict(tile_ids=tids, tile_offset=off)
+    dk = dict(tile_ids=None if tids is None else tids.to(card),
+              tile_offset=off)
+    d = [x.to(card) for x in (slots, R9, t, counts)]
+    ref = CS.splat_forward(slots, R9, t, counts, cam, TILES_X, **kw)
+    got = CS.splat_forward(*d, cam, TILES_X, **dk)
+    np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(np_(got)[-3:, :6], 0.0)
+    np.testing.assert_array_equal(np_(got)[-3:, 6], 1.0)
+    out, gd = ref, g.to(card)
+    for fn in (CS.splat_backward_pose, CS.splat_backward_vals_rows,
+               CS.splat_backward_all):
+        r = fn(slots, R9, t, counts, out, g, cam, TILES_X, **kw)
+        k = fn(*d[:3], d[3], out.to(card), gd, cam, TILES_X, **dk)
+        assert torch.equal(k, fn(*d[:3], d[3], out.to(card), gd, cam, TILES_X,
+                                 **dk))
+        np.testing.assert_array_equal(np_(k)[-3:], 0.0)
+        assert bool(k[0].abs().sum() > 0)
+        if fn is CS.splat_backward_pose:
+            assert_close_scaled(k, r, 1e-3, "pose partials")
+            continue
+        if fn is CS.splat_backward_all:
+            k, r = k.transpose(1, 2), r.transpose(1, 2)
+        for col in range(8):
+            assert_close_scaled(k[..., col], r[..., col], 1e-3,
+                                f"{fn.__name__} col {col}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["tids", "offset"])
+def test_blend_kernels_with_tile_ids_and_offset_match_plain(card, how):
+    """K4 and K5 with the tile-id operand and a nonzero tile offset against
+    their plain versions; a padded row (count 0) under a nonzero cotangent
+    gives exact zeros."""
+    recs, counts = _records(seed=8)
+    if how == "tids":
+        perm = torch.as_tensor(np.random.default_rng(4).permutation(9))
+        recs, counts = recs[perm], counts[perm]
+        tids, off = perm.to(torch.int32), 0
+    else:
+        recs, counts, tids, off = recs[4:], counts[4:], None, 4
+    recs = torch.cat([recs, recs[:1]]).contiguous()
+    counts = torch.cat([counts, torch.zeros(1, dtype=torch.int32)])
+    if tids is not None:
+        tids = torch.cat([tids, torch.zeros(1, dtype=torch.int32)])
+    kw = dict(tile_ids=tids, tile_offset=off)
+    dk = dict(tile_ids=None if tids is None else tids.to(card),
+              tile_offset=off)
+    ref = CB.blend_forward(recs, counts, TILES_X, 8, **kw)
+    got = CB.blend_forward(recs.to(card), counts.to(card), TILES_X, 8, **dk)
+    np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-4, atol=1e-5)
+    g = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        tuple(ref.shape)).astype(np.float32))
+    g[-1] = g[0]
+    r5 = CB.blend_backward(recs, counts, ref, g, TILES_X, **kw)
+    k5 = CB.blend_backward(recs.to(card), counts.to(card), ref.to(card),
+                           g.to(card), TILES_X, **dk)
+    for col in range(16):
+        assert_close_scaled(k5[..., col], r5[..., col], 1e-3, f"col {col}")
+    np.testing.assert_array_equal(np_(k5)[-1], 0.0)
+    assert bool(k5[0].abs().sum() > 0)
+
+
+@pytest.mark.cuda
+def test_two_class_forward_equals_single_class_bitwise(card):
+    """With the dense set covering every tile over the sparse budget, the
+    merged two-class K1 render (tile-id operand) equals the single-class
+    render at the dense budget to the bit: the kernel walks only a tile's
+    count, whatever the table width. The same for the tracking cache."""
+    from torch_port_util import crowded_scene_np
+    from vtgaussian_slam_tpu_torch.core import map_cache as MC
+    from vtgaussian_slam_tpu_torch.core import track_cache as TC
+    from vtgaussian_slam_tpu_torch.ops.camera import Camera
+    cam = Camera(height=48, width=64, fx=50.0, fy=50.0, cx=32.0, cy=24.0)
+    p = torch_params(crowded_scene_np(900, 7))
+    p = type(p)(*[x.to(card) for x in p.tensors()])
+    act = torch.ones(p.means3d.shape[0], dtype=torch.bool, device=card)
+    q = torch.tensor([0.9998, 0.01, -0.012, 0.008], device=card)
+    t = torch.tensor([0.004, -0.003, 0.002], device=card)
+    kw = dict(span_cap=2, max_pairs_per_tile=256, select="importance")
+    two = MC.build_kf_cache_2c(p, act, q, t, cam, mpt_sparse=128, k_dense=8,
+                               **kw)
+    one = MC.build_kf_cache(p, act, q, t, cam, **kw)
+    full = MC.build_kf_cache(p, act, q, t, cam, **dict(kw,
+                                                       max_pairs_per_tile=4096))
+    assert int((full.counts > 128).sum()) <= 8, "the dense set covers"
+    f8 = MC.pack_fields8(p)
+    R9 = geo.quat_to_rotmat(geo.normalize(q)).reshape(9)
+    n1 = CS.splat_forward.launches
+    merged = MC.splat_forward_2c(f8, two, R9, cam)[2]
+    assert CS.splat_forward.launches == n1 + 2
+    single = CS.splat_forward(B.gather_channels(f8, one.tab), R9, t,
+                              one.counts, cam, 4)
+    assert torch.equal(merged, single)
+    tc2 = TC.build_track_cache_2c(p, act, q, t, cam, mpt_sparse=128,
+                                  k_dense=8, **kw)
+    tc1 = TC.build_track_cache(p, act, q, t, cam, **kw)
+    q1 = q + torch.tensor([0.0, 0.002, -0.001, 0.001], device=card)
+    r2 = TC.render_cached_2c(tc2, q1, t, cam)
+    r1 = TC.render_cached(tc1, q1, t, cam)
+    for a, b in zip(r1[:4], r2[:4]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -48,6 +48,23 @@ def scene_np(n=400, seed=0, logit_lo=-1.0, logit_hi=3.0, scale_lo=-3.2,
     }
 
 
+def crowded_scene_np(n=900, seed=7, height=48, width=64, fx=50.0):
+    """Reference-format isotropic Gaussians crowded towards the left edge
+    of a height x width camera of focal fx centred on the image (u ~ U^2),
+    so tile counts are heavy-tailed: the two-class tests' scene."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.5, 3.5, n)
+    u = 2.0 + (width - 4.0) * rng.uniform(0, 1, n) ** 2
+    v = rng.uniform(2.0, height - 2.0, n)
+    means = np.stack([(u - width / 2) / fx * z, (v - height / 2) / fx * z, z],
+                     -1)
+    return {"means3D": means.astype(np.float32),
+            "rgb_colors": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+            "unnorm_rotations": np.tile(np.float32([[1, 0, 0, 0]]), (n, 1)),
+            "logit_opacities": rng.normal(size=(n, 1)).astype(np.float32),
+            "log_scales": rng.uniform(-3.4, -2.6, (n, 1)).astype(np.float32)}
+
+
 def jax_params(p):
     import jax.numpy as jnp
     from vtgaussian_slam_tpu.models.gaussians import GaussianParams

@@ -7,10 +7,9 @@ kernels on the SLAM main path are CUDA C++ for sm_90a
 with ctypes (`ops/rasterizer/_build.py`).
 
 The CLI (`python -m vtgaussian_slam_tpu_torch <config.py>`) runs online
-SLAM over the synthetic, Replica, TUM and ScanNet configs across section
-boundaries and writes `params_ls.npy` and `eval/` as the JAX package's
-does; ScanNet++ odometry, mesh evaluation, two-class binning and the
-multi-GPU engine are not ported yet.
+SLAM over every shipped config family across section boundaries and writes
+`params_ls.npy` and `eval/` as the JAX package's does; under torchrun with
+`tpu.mesh_devices` it runs tile-sharded over the ranks (`parallel/`).
 """
 import torch
 

@@ -19,6 +19,17 @@ averages, ending with "Final Average ATE RMSE". With `--frames N` it runs
 and evaluates frames 0 .. N - 1. With `eval_mode` it re-scores the results
 directory's saved `params_ls.npy` instead, at a pair budget sized from the
 map (the training budget is not saved).
+
+Tile-sharded over several processes (parallel/engine.py), one per rank:
+
+    torchrun --nproc_per_node=N -m vtgaussian_slam_tpu_torch <config.py> \
+        --set tpu.mesh_devices=N [--device cpu]
+
+The process group runs NCCL when every rank has a card of its own (rank i
+on cuda:LOCAL_RANK) and gloo otherwise (on the CPU, or ranks sharing
+cards). Every rank runs the whole engine; rank 0 alone prints the
+per-frame report and writes the results directory, params_ls.npy and
+eval/.
 """
 from __future__ import annotations
 
@@ -93,14 +104,47 @@ def main(argv=None) -> int:
     for item in args.set:
         apply_override(config, item)
 
+    from .utils.common import resolve_device
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    device = resolve_device(args.device)
+    if world > 1:
+        device = _join_group(rank, world, device)
+    try:
+        return _run(args, config, device, rank)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_group(rank: int, world: int, device):
+    """Join torchrun's process group (env://): NCCL with a card per rank on
+    cuda:LOCAL_RANK, else gloo (the CPU, or ranks sharing cards: NCCL
+    refuses two ranks on one device)."""
+    import torch
+
+    from .parallel.engine import init_process_group
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    backend = "gloo"
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        backend = "nccl" if n >= world else "gloo"
+        device = f"cuda:{local % n}"
+    return init_process_group(rank, world, device, backend, "env://")
+
+
+def _run(args, config, device, rank: int) -> int:
     from .core.config import prepare_config
     from .eval.evaluate import eval_backend_kwargs, eval_sequence
-    from .utils.common import resolve_device, seed_everything
+    from .utils.common import seed_everything
 
-    device = resolve_device(args.device)
     seed_everything(seed=config["seed"])
     results_dir = os.path.join(config["workdir"], config["run_name"])
-    if not config.get("load_checkpoint", False):
+    if config.get("eval_mode") and rank != 0:
+        return 0
+    if not config.get("load_checkpoint", False) and rank == 0:
         os.makedirs(results_dir, exist_ok=True)
         dst = os.path.join(results_dir, "config.py")
         # eval_mode often re-runs the results directory's own config.py:
@@ -110,8 +154,9 @@ def main(argv=None) -> int:
 
     config = prepare_config(config)
     eval_dir = os.path.join(results_dir, "eval")
-    os.makedirs(eval_dir, exist_ok=True)
-    lpips = _lpips_scorer(device)
+    if rank == 0:
+        os.makedirs(eval_dir, exist_ok=True)
+    lpips = _lpips_scorer(device) if rank == 0 else None
     eval_kw = dict(
         sil_thres=config["mapping"]["sil_thres"],
         mapping_iters=config["mapping"]["num_iters"],
@@ -142,9 +187,15 @@ def main(argv=None) -> int:
     from .core.pipeline import VTGaussianSLAM
     t0 = time.time()
     engine = VTGaussianSLAM(config, device=device)
+    n = min(args.frames or engine.num_frames, engine.num_frames)
+    if rank != 0:
+        try:
+            engine.run(n)
+        finally:
+            engine.close()
+        return 0
     print(f"init: {time.time() - t0:.2f} s, {engine.sections[0].n_active} "
           f"gaussians, {engine.cam.height}x{engine.cam.width}")
-    n = min(args.frames or engine.num_frames, engine.num_frames)
 
     def report(t):
         ft = engine.frame_times[t]

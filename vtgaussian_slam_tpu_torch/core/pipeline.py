@@ -33,6 +33,13 @@ chooses them:
     on (its default is on for CUDA and off for the CPU, as the JAX default
     follows the backend); otherwise the generic route.
 
+With `tpu.two_class_frac` > 0 both default loops bin in two classes
+(binning.bin_two_class: the fullest tiles at the pair budget, the rest at
+a fraction of it). With `tpu.mesh_devices` = N > 1 the engine runs as one
+of N ranks of a `torch.distributed` group (parallel/engine.py): each rank
+holds the whole state and renders its range of tile rows in the default
+loops; everything else runs replicated, and rank 0 alone writes files.
+
 As in the JAX engine, `gaussian_distribution="anisotropic"` changes the
 route but not the Gaussians: sections are seeded with (N, 1) log-scales
 either way. The pair budget follows `auto_pair_budget` times a boost that
@@ -77,6 +84,7 @@ from ..models import gaussians as G
 from ..ops import geometry as geo
 from ..ops.camera import setup_camera
 from ..ops.image import geometric_edge_mask, resize_mask_nearest
+from ..ops.rasterizer.binning import BLOCK
 from ..utils.common import resolve_device, save_params_ckpt
 from ..utils.observability import (RunLogger, frame_quality, report_loss,
                                    report_progress, save_progress_panel,
@@ -92,7 +100,7 @@ from .p2p import P2PTarget, make_p2p_target
 from .selection import (find_earliest_keyframe, overlap_percents,
                         select_earliest_topk_base, select_topk_overlap,
                         select_visbased)
-from .track_cache import build_track_cache
+from .track_cache import build_track_cache, build_track_cache_2c
 from .tracking import (TrackingConfig, init_track_state, probe_loss,
                        track_frame, track_frame_cached)
 
@@ -205,8 +213,7 @@ class VTGaussianSLAM:
             isotropic and float(mplrs.get("means3D", 0.0)) == 0.0
             and float(mplrs.get("unnorm_rotations", 0.0)) == 0.0
             and tpu.get("map_binned", self.device.type != "cpu"))
-        if float(tpu.get("two_class_frac", 0.0)) > 0.0:
-            raise NotImplementedError("two-class binning: later slice")
+        self._setup_mesh(int(tpu.get("mesh_devices", 1) or 1))
 
         self.dataset_name = gradslam_config(data_cfg)["dataset_name"]
         if self.dataset_name == "synthetic" and cfg.get("selection_style"):
@@ -261,9 +268,11 @@ class VTGaussianSLAM:
         self.ring_depths = torch.zeros((self.bfe, 1, H, W), device=self.device)
         self._bin_select = ("importance" if tpu.get("importance_binning", True)
                             else "depth")
+        self._setup_two_class()
         self.map_store = MapCacheStore(
             refresh=int(tpu.get("map_cache_refresh", 1)),
-            select=self._bin_select)
+            select=self._bin_select, k_dense=self._k_dense,
+            sparse_div=self._two_class_div, tile_pad=self.tile_pad)
         self.baseframes = BaseframeStore(
             H, W, tpu["baseframe_capacity_quantum"],
             stride=int(tpu.get("baseframe_depth_stride", 4)),
@@ -307,7 +316,8 @@ class VTGaussianSLAM:
         # <run>/events.jsonl; the loops keep loss histories only for it
         wb = cfg.get("wandb", {})
         self.logger = RunLogger(
-            enabled=bool(cfg.get("use_wandb")), project=wb.get("project", ""),
+            enabled=bool(cfg.get("use_wandb")) and self.rank == 0,
+            project=wb.get("project", ""),
             group=wb.get("group", ""), name=wb.get("name", ""),
             entity=wb.get("entity", ""), config=cfg,
             out_dir=self.run_dir())
@@ -329,6 +339,71 @@ class VTGaussianSLAM:
             "section_page_outs": 0, "t_densify": 0.0,
             "t_checkpoint": 0.0, **{k: 0.0 for k in TIMER_KEYS}}
         self._init_first_frame(color0, depth0)
+
+    def _setup_mesh(self, md: int):
+        """tpu.mesh_devices > 1: the cached tracking and binned mapping
+        loops run tile-sharded over the process group's ranks
+        (parallel/engine.py), which must number exactly md; a config that
+        routes to the generic loops (which have no sharded twin) raises
+        unless tpu.allow_unsharded_fallback is set. Only rank 0 writes
+        files."""
+        self.group = None
+        self.rank = 0
+        self.tile_pad = 0
+        self._track_cached_fn = track_frame_cached
+        self._map_binned_fn = map_frame_binned
+        if md <= 1:
+            return
+        cfg, tpu = self.config, self.config["tpu"]
+        reasons = []
+        if cfg["gaussian_distribution"] != "isotropic":
+            reasons.append("gaussian_distribution != 'isotropic'")
+        if not tpu.get("track_cache", True):
+            reasons.append("tpu.track_cache=False")
+        mlrs = cfg["mapping"]["lrs"]
+        if (float(mlrs.get("means3D", 0.0)) != 0.0
+                or float(mlrs.get("unnorm_rotations", 0.0)) != 0.0):
+            reasons.append("nonzero means3D/unnorm_rotations mapping lrs")
+        if not tpu.get("map_binned", self.device.type != "cpu"):
+            reasons.append("tpu.map_binned=False")
+        if reasons and not tpu.get("allow_unsharded_fallback", False):
+            raise ValueError(
+                "tpu.mesh_devices > 1 but this config routes to the generic "
+                "(unsharded) tracking/mapping paths: " + "; ".join(reasons)
+                + ". Set tpu.allow_unsharded_fallback=True to accept "
+                "unsharded execution of those paths on every rank.")
+        from ..parallel.engine import (make_map_frame_binned_sharded,
+                                       make_mesh,
+                                       make_track_frame_cached_sharded,
+                                       tile_pad_for)
+        self.group = make_mesh(md)
+        self.rank = self.group.rank
+        self.tile_pad = tile_pad_for(self.group.world)
+        self._track_cached_fn = make_track_frame_cached_sharded(self.group)
+        self._map_binned_fn = make_map_frame_binned_sharded(self.group)
+
+    def _setup_two_class(self):
+        """Two-class binning (binning.bin_two_class) at tpu.two_class_frac
+        of the image's tiles, rounded to whole 8-tile blocks (the env vars
+        VTGS_TWO_CLASS_FRAC / VTGS_TWO_CLASS_DIV override the config, as in
+        the JAX engine): the dense tiles keep the pair budget, the rest run
+        max(128, mpt // two_class_sparse_div). Off (k_dense 0) at frac 0
+        and on a tile-sharded group, whose loops bin single-class."""
+        tpu = self.config["tpu"]
+        tcf = os.environ.get("VTGS_TWO_CLASS_FRAC")
+        self._two_class_frac = (float(tcf) if tcf is not None
+                                else float(tpu.get("two_class_frac", 0.0)))
+        tcd = os.environ.get("VTGS_TWO_CLASS_DIV")
+        self._two_class_div = (int(tcd) if tcd is not None
+                               else int(tpu.get("two_class_sparse_div", 4)))
+        if self.group is not None:
+            self._two_class_frac = 0.0
+        n_tiles = (-(-self.cam.height // 16)) * (-(-self.cam.width // 16))
+        self._k_dense = 0
+        if self._two_class_frac > 0.0:
+            k = int(round(self._two_class_frac * n_tiles))
+            self._k_dense = min(max(-(-k // BLOCK) * BLOCK, BLOCK),
+                                (n_tiles - 1) // BLOCK * BLOCK)
 
     # ------------------------------------------------------------------
     def run_dir(self) -> str:
@@ -797,23 +872,39 @@ class VTGaussianSLAM:
                     [rebin] * (total // rebin)
                     + ([total % rebin] if total % rebin else []))
         n_tiles = (-(-self.cam.height // 16)) * (-(-self.cam.width // 16))
+        mpt_s = max(128, mpt // self._two_class_div)
         hists = []
         for seg in seg_lens:
             t0 = time.time()
-            cache = build_track_cache(
-                sec.params, sec.active_mask(), state.quat, state.trans,
-                self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
-                chunk=bk["chunk"], select=self._bin_select)
+            if self._k_dense > 0:
+                cache = build_track_cache_2c(
+                    sec.params, sec.active_mask(), state.quat, state.trans,
+                    self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
+                    mpt_sparse=mpt_s, k_dense=self._k_dense,
+                    select=self._bin_select)
+            else:
+                cache = build_track_cache(
+                    sec.params, sec.active_mask(), state.quat, state.trans,
+                    self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
+                    chunk=bk["chunk"], tile_pad=self.tile_pad,
+                    select=self._bin_select)
             self.stats["t_track_cache"] += time.time() - t0
             t0 = time.time()
-            state, im_h, d_h = track_frame_cached(
+            state, im_h, d_h = self._track_cached_fn(
                 cache, state, frame, aux_mask, self.cam,
                 tcfg._replace(num_iters=seg), p2p_t)
             hists.append((im_h, d_h))
             self._sync()
             self.stats["tracking_loop_time_sum"] += time.time() - t0
             self.stats["tracking_loop_iters"] += seg
-            trunc = float((cache.counts[:n_tiles] >= mpt).double().mean())
+            if self._k_dense > 0:
+                # saturation at each tile's own class budget (padded rows
+                # have count 0)
+                n_sat = int((cache.counts_d >= mpt).sum()
+                            + (cache.counts_s >= mpt_s).sum())
+                trunc = n_sat / n_tiles
+            else:
+                trunc = float((cache.counts[:n_tiles] >= mpt).double().mean())
             self.stats["tile_truncation_frac_max"] = max(
                 self.stats["tile_truncation_frac_max"], trunc)
         if tpu.get("auto_pair_budget", True):
@@ -825,7 +916,8 @@ class VTGaussianSLAM:
                 self._pending_harm = trunc_probe(
                     sec.params, sec.active_mask(), state.best_quat,
                     state.best_trans, self.cam, span_cap=bk["span_cap"],
-                    mpt=mpt, select=self._bin_select)
+                    mpt=mpt, select=self._bin_select, k_dense=self._k_dense,
+                    sparse_div=self._two_class_div)
                 self._pending_harm_mpt = mpt
         self._frames_tracked += 1
         self._track_hist_add(sec, state, frame, aux_mask, tcfg, hists)
@@ -839,7 +931,8 @@ class VTGaussianSLAM:
         im_h = torch.cat([h[0] for h in hists])
         d_h = torch.cat([h[1] for h in hists])
         self._track_hist.append((im_h, d_h))
-        if not self.config["tracking"].get("visualize_tracking_loss", False):
+        if (not self.config["tracking"].get("visualize_tracking_loss", False)
+                or self.rank != 0):
             return
         t = self._cur_frame
         with torch.no_grad():
@@ -961,7 +1054,7 @@ class VTGaussianSLAM:
                 fixed_params, fixed_active, sec.params, active,
                 self.traj.quats[start].clone(), self.traj.trans[start].clone(),
                 self.cam, span_cap=span_cap, max_pairs_per_tile=g_mpt,
-                select=self._bin_select)
+                tile_pad=self.tile_pad, select=self._bin_select)
             g_trunc = float((gc.counts[:tiles] >= g_mpt).double().mean())
             self.stats["tile_truncation_frac_max"] = max(
                 self.stats["tile_truncation_frac_max"], g_trunc)
@@ -1021,7 +1114,7 @@ class VTGaussianSLAM:
             draws = (self.map_draws(t, mcfg.num_iters, count)
                      if self.map_draws is not None else None)
             t0 = time.time()
-            new_params, hist = map_frame_binned(
+            new_params, hist = self._map_binned_fn(
                 sec.params, kf, slots, slot_ids, self.cam, mcfg, draws=draws,
                 generator=self.map_generator, gc=gc)
             self._page_cold_finish(
@@ -1194,8 +1287,9 @@ class VTGaussianSLAM:
             i = len(self.sections) - 1
             last = self.host_section(i) if i in self._paged else \
                 self.sections[i]
-            save_params_ckpt(G.section_to_numpy_params(last, self.traj),
-                             self.run_dir(), t)
+            if self.rank == 0:
+                save_params_ckpt(G.section_to_numpy_params(last, self.traj),
+                                 self.run_dir(), t)
             print("Failed to evaluate trajectory.")
             return
         if self._panels is None:
@@ -1206,7 +1300,7 @@ class VTGaussianSLAM:
                 self._panels = False
                 print("NOTE: no matplotlib: panels skipped (the progress "
                       "records are logged)")
-        if self._panels:
+        if self._panels and self.rank == 0:
             save_progress_panel(
                 os.path.join(self.run_dir(), "plots", f"frame_{t:05d}.png"),
                 r, frame, sil, title=f"frame {t}: PSNR {psnr:.2f}  "
@@ -1256,7 +1350,7 @@ class VTGaussianSLAM:
         checkpoint_interval frames (not after frame 0), its seconds in
         frame_times[t]["checkpoint"], apart from the frame's split."""
         cfg = self.config
-        if (t == 0 or not cfg.get("save_checkpoints")
+        if (t == 0 or not cfg.get("save_checkpoints") or self.rank != 0
                 or (t + 1) % cfg.get("checkpoint_interval", 100)):
             return
         from ..utils.checkpoint import save_checkpoint

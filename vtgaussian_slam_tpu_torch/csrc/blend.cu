@@ -8,6 +8,8 @@
 //   recs   (n_tiles, 16, mpt) f32 rows [mean2d.x mean2d.y conic.a conic.b
 //          conic.c opacity colors(C <= 8) pad], depth-ordered per tile
 //   counts (n_tiles,) i32
+//   tids   null or (n_tiles,) i32 image tile per row, plus an int
+//          tile_offset (a tile-sharded rank's range; walk.cuh:image_tile)
 //   out    (n_tiles, 256, C) f32
 //   g      (n_tiles, 256, C) f32 cotangent of out
 //   K5 ->  (n_tiles, mpt, 16) f32 ROW-major per record [d mean2d (2),
@@ -167,7 +169,8 @@ __device__ __forceinline__ float4 stage_box(const RecStage& st, int k,
 
 __global__ void __launch_bounds__(TPX, 4)
 blend_fwd_kernel(const float* __restrict__ recs, const int* __restrict__ counts,
-                 int mpt, int tiles_x, int C, float* __restrict__ out) {
+                 const int* __restrict__ tids, int mpt, int tiles_x,
+                 int tile_offset, int C, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_buf[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_buf);
   const int tile = blockIdx.x;
@@ -175,7 +178,8 @@ blend_fwd_kernel(const float* __restrict__ recs, const int* __restrict__ counts,
   const int warp = p >> 5, lane = p & 31;
   const int count = counts[tile];
   const float* tr = recs + (size_t)tile * RECW * mpt;
-  const int tx0 = (tile % tiles_x) * TILE, ty0 = (tile / tiles_x) * TILE;
+  const int it = image_tile(tids, tile, tile_offset);
+  const int tx0 = (it % tiles_x) * TILE, ty0 = (it / tiles_x) * TILE;
   const float tox = (float)tx0, toy = (float)ty0;
   const WarpBlock wb(warp, lane);
   // the pairs are evaluated in global pixel coordinates on the raw means
@@ -314,8 +318,9 @@ __device__ __forceinline__ void stage_record(RecSmem& sm, const float* raw,
 
 __global__ void __launch_bounds__(TPX, 3)
 blend_bwd_kernel(const float* __restrict__ recs, const int* __restrict__ counts,
-                 const float* __restrict__ out, const float* __restrict__ gin,
-                 int mpt, int tiles_x, int C, float* __restrict__ grad) {
+                 const int* __restrict__ tids, const float* __restrict__ out,
+                 const float* __restrict__ gin, int mpt, int tiles_x,
+                 int tile_offset, int C, float* __restrict__ grad) {
   extern __shared__ __align__(16) unsigned char smem_buf[];
   RecSmem& sm = *reinterpret_cast<RecSmem*>(smem_buf);
   const int tile = blockIdx.x;
@@ -324,8 +329,9 @@ blend_bwd_kernel(const float* __restrict__ recs, const int* __restrict__ counts,
   const int gq = lane >> 2, tq = lane & 3;   // mma group and thread in group
   const int count = counts[tile];
   const float* tr = recs + (size_t)tile * RECW * mpt;
-  const float tox = (float)((tile % tiles_x) * TILE);
-  const float toy = (float)((tile / tiles_x) * TILE);
+  const int it = image_tile(tids, tile, tile_offset);
+  const float tox = (float)((it % tiles_x) * TILE);
+  const float toy = (float)((it / tiles_x) * TILE);
   const WarpBlock wb(warp, lane);
   const int rows = 6 + C;
 
@@ -541,28 +547,32 @@ const char* vtgs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int vtgs_blend_fwd(const float* recs, const int* counts, int n_tiles, int mpt,
-                   int tiles_x, int n_channels, float* out, void* stream) {
+// tids: null, or (n_tiles,) i32 image tile per row; tile_offset: added to
+// every row's tile (see walk.cuh:image_tile)
+int vtgs_blend_fwd(const float* recs, const int* counts, const int* tids,
+                   int n_tiles, int mpt, int tiles_x, int tile_offset,
+                   int n_channels, float* out, void* stream) {
   if (n_channels < 1 || n_channels > CMAX) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(FwdSmem);
   const cudaError_t e = cudaFuncSetAttribute(
       blend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   blend_fwd_kernel<<<n_tiles, TPX, smem, (cudaStream_t)stream>>>(
-      recs, counts, mpt, tiles_x, n_channels, out);
+      recs, counts, tids, mpt, tiles_x, tile_offset, n_channels, out);
   return (int)cudaGetLastError();
 }
 
-int vtgs_blend_bwd(const float* recs, const int* counts, const float* out,
-                   const float* g, int n_tiles, int mpt, int tiles_x,
-                   int n_channels, float* grad, void* stream) {
+int vtgs_blend_bwd(const float* recs, const int* counts, const int* tids,
+                   const float* out, const float* g, int n_tiles, int mpt,
+                   int tiles_x, int tile_offset, int n_channels, float* grad,
+                   void* stream) {
   if (n_channels < 1 || n_channels > CMAX) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(RecSmem);
   const cudaError_t e = cudaFuncSetAttribute(
       blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   blend_bwd_kernel<<<n_tiles, TPX, smem, (cudaStream_t)stream>>>(
-      recs, counts, out, g, mpt, tiles_x, n_channels, grad);
+      recs, counts, tids, out, g, mpt, tiles_x, tile_offset, n_channels, grad);
   return (int)cudaGetLastError();
 }
 

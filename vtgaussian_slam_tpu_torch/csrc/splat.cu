@@ -10,6 +10,10 @@
 // Layouts (identical to the JAX package):
 //   slots  (n_tiles, 8, mpt) f32 rows [wx wy wz logit_op log_scale r g b]
 //   counts (n_tiles,) i32 live slots per tile, depth-ordered
+//   tids   null or (n_tiles,) i32 the image tile of each row, and an int
+//          tile_offset added to it (two-class binning's tile subsets, a
+//          tile-sharded rank's range; walk.cuh:image_tile); they move only
+//          the pixel origin, the row addresses every operand
 //   cp     (18,) f32 [R(9) t(3) fx fy cx cy 1.3*tanfovx 1.3*tanfovy]
 //   out    (n_tiles, 8, 256) f32 channels (r g b z 1 z^2 T_end 0)
 //   g      (n_tiles, 8, 256) f32 cotangent of out
@@ -239,7 +243,8 @@ struct BwdSmem : SlotStage<BCH> {
 
 __global__ void __launch_bounds__(TPX, 4)
 splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts,
-                 const float* __restrict__ cp, int mpt, int tiles_x,
+                 const int* __restrict__ tids, const float* __restrict__ cp,
+                 int mpt, int tiles_x, int tile_offset,
                  float* __restrict__ out) {
   __shared__ __align__(16) FwdSmem sm;
   const int tile = blockIdx.x;
@@ -247,8 +252,9 @@ splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   const int warp = p >> 5, lane = p & 31;
   const int count = counts[tile];
   const float* ts = slots + (size_t)tile * 8 * mpt;
-  const float tox = (float)((tile % tiles_x) * TILE);
-  const float toy = (float)((tile / tiles_x) * TILE);
+  const int it = image_tile(tids, tile, tile_offset);
+  const float tox = (float)((it % tiles_x) * TILE);
+  const float toy = (float)((it / tiles_x) * TILE);
   const WarpBlock wb(warp, lane);
   // lanes 0 .. FPW - 1 of each warp project slot sl of a chunk
   const bool proj = lane < FPW;
@@ -343,8 +349,9 @@ splat_fwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
 template <int MODE>
 __global__ void __launch_bounds__(TPX, 3)
 splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts,
-                 const float* __restrict__ cp, const float* __restrict__ out,
-                 const float* __restrict__ gin, int mpt, int tiles_x,
+                 const int* __restrict__ tids, const float* __restrict__ cp,
+                 const float* __restrict__ out, const float* __restrict__ gin,
+                 int mpt, int tiles_x, int tile_offset,
                  float* __restrict__ grad) {
   extern __shared__ __align__(16) unsigned char smem_buf[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_buf);
@@ -354,8 +361,9 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
   const int gq = lane >> 2, tq = lane & 3;   // mma group and thread in group
   const int count = counts[tile];
   const float* ts = slots + (size_t)tile * 8 * mpt;
-  const float tox = (float)((tile % tiles_x) * TILE);
-  const float toy = (float)((tile / tiles_x) * TILE);
+  const int it = image_tile(tids, tile, tile_offset);
+  const float tox = (float)((it % tiles_x) * TILE);
+  const float toy = (float)((it / tiles_x) * TILE);
   // warp w walks the 8 x 4 pixel block at (8 (w & 1), 4 (w >> 1))
   const int bx0 = 8 * (warp & 1), by0 = 4 * (warp >> 1);
   const int pix = (by0 + (lane >> 3)) * TILE + bx0 + (lane & 7);
@@ -669,16 +677,17 @@ splat_bwd_kernel(const float* __restrict__ slots, const int* __restrict__ counts
 }
 
 template <int MODE>
-int launch_bwd(const float* slots, const int* counts, const float* cp,
-               const float* out, const float* g, int n_tiles, int mpt,
-               int tiles_x, float* grad, void* stream) {
+int launch_bwd(const float* slots, const int* counts, const int* tids,
+               const float* cp, const float* out, const float* g, int n_tiles,
+               int mpt, int tiles_x, int tile_offset, float* grad,
+               void* stream) {
   const int smem = (int)sizeof(BwdSmem);
   const cudaError_t e = cudaFuncSetAttribute(
       splat_bwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
   splat_bwd_kernel<MODE><<<n_tiles, TPX, smem, (cudaStream_t)stream>>>(
-      slots, counts, cp, out, g, mpt, tiles_x, grad);
+      slots, counts, tids, cp, out, g, mpt, tiles_x, tile_offset, grad);
   return (int)cudaGetLastError();
 }
 
@@ -690,33 +699,38 @@ const char* vtgs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int vtgs_splat_fwd(const float* slots, const int* counts, const float* cp,
-                   int n_tiles, int mpt, int tiles_x, float* out, void* stream) {
+// tids: null, or (n_tiles,) i32 image tile per row; tile_offset: added to
+// every row's tile (see walk.cuh:image_tile)
+int vtgs_splat_fwd(const float* slots, const int* counts, const int* tids,
+                   const float* cp, int n_tiles, int mpt, int tiles_x,
+                   int tile_offset, float* out, void* stream) {
   splat_fwd_kernel<<<n_tiles, TPX, 0, (cudaStream_t)stream>>>(
-      slots, counts, cp, mpt, tiles_x, out);
+      slots, counts, tids, cp, mpt, tiles_x, tile_offset, out);
   return (int)cudaGetLastError();
 }
 
-int vtgs_splat_bwd_pose(const float* slots, const int* counts, const float* cp,
-                        const float* out, const float* g, int n_tiles, int mpt,
-                        int tiles_x, float* partial, void* stream) {
-  return launch_bwd<0>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
-                        partial, stream);
+int vtgs_splat_bwd_pose(const float* slots, const int* counts, const int* tids,
+                        const float* cp, const float* out, const float* g,
+                        int n_tiles, int mpt, int tiles_x, int tile_offset,
+                        float* partial, void* stream) {
+  return launch_bwd<0>(slots, counts, tids, cp, out, g, n_tiles, mpt, tiles_x,
+                        tile_offset, partial, stream);
 }
 
 int vtgs_splat_bwd_vals_rows(const float* slots, const int* counts,
-                             const float* cp, const float* out, const float* g,
-                             int n_tiles, int mpt, int tiles_x, float* rows,
-                             void* stream) {
-  return launch_bwd<1>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
-                        rows, stream);
+                             const int* tids, const float* cp, const float* out,
+                             const float* g, int n_tiles, int mpt, int tiles_x,
+                             int tile_offset, float* rows, void* stream) {
+  return launch_bwd<1>(slots, counts, tids, cp, out, g, n_tiles, mpt, tiles_x,
+                        tile_offset, rows, stream);
 }
 
-int vtgs_splat_bwd_all(const float* slots, const int* counts, const float* cp,
-                       const float* out, const float* g, int n_tiles, int mpt,
-                       int tiles_x, float* grad, void* stream) {
-  return launch_bwd<2>(slots, counts, cp, out, g, n_tiles, mpt, tiles_x,
-                        grad, stream);
+int vtgs_splat_bwd_all(const float* slots, const int* counts, const int* tids,
+                       const float* cp, const float* out, const float* g,
+                       int n_tiles, int mpt, int tiles_x, int tile_offset,
+                       float* grad, void* stream) {
+  return launch_bwd<2>(slots, counts, tids, cp, out, g, n_tiles, mpt, tiles_x,
+                        tile_offset, grad, stream);
 }
 
 }  // extern "C"

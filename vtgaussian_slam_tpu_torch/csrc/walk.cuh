@@ -44,6 +44,17 @@ struct WarpBlock {
   }
 };
 
+// The image tile of operand row `row` (the CTA's blockIdx.x): tids[row] when
+// the rows hold an arbitrary tile subset (two-class binning; null: the row
+// itself), plus tile_offset (a tile-sharded rank's first tile), as
+// pallas_splat._fwd_kernel reads `tid_ref[tl] + meta_ref[1]`. Only the
+// pixel origin reads it: the row still addresses counts, slots / records,
+// cotangents and outputs.
+__device__ __forceinline__ int image_tile(const int* __restrict__ tids,
+                                          int row, int tile_offset) {
+  return (tids != nullptr ? tids[row] : row) + tile_offset;
+}
+
 // A pair is kept only where alpha = op exp(-Q/2) >= 1/255, i.e. where the
 // conic form Q <= 2 ln(255 op). The walks test alpha in f32; the box pads the
 // radius by 0.1% and 1e-4, far above that test's rounding, so every pair a

@@ -33,18 +33,19 @@ BUILD_LOG: dict[str, str] = {}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # exported symbol -> ctypes argument types (pointers and the stream as
-# c_void_p: a default int argument would cut a 64-bit pointer)
+# c_void_p: a default int argument would cut a 64-bit pointer; a None
+# pointer is NULL, as the tile-id operand takes it)
+_SPLAT_BWD = (_VP,) * 6 + (_I,) * 4 + (_VP, _VP)
 SIGNATURES = {
     "splat": {
-        "vtgs_splat_fwd": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
-        "vtgs_splat_bwd_pose": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
-        "vtgs_splat_bwd_vals_rows": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
-                                     _VP),
-        "vtgs_splat_bwd_all": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+        "vtgs_splat_fwd": (_VP,) * 4 + (_I,) * 4 + (_VP, _VP),
+        "vtgs_splat_bwd_pose": _SPLAT_BWD,
+        "vtgs_splat_bwd_vals_rows": _SPLAT_BWD,
+        "vtgs_splat_bwd_all": _SPLAT_BWD,
     },
     "blend": {
-        "vtgs_blend_fwd": (_VP, _VP, _I, _I, _I, _I, _VP, _VP),
-        "vtgs_blend_bwd": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP),
+        "vtgs_blend_fwd": (_VP,) * 3 + (_I,) * 5 + (_VP, _VP),
+        "vtgs_blend_bwd": (_VP,) * 5 + (_I,) * 5 + (_VP, _VP),
     },
 }
 

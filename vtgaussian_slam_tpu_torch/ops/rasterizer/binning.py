@@ -10,6 +10,10 @@ on the same projected inputs.
 `with_inverse=True` also records, for every (gaussian, slot) pair, the flat
 table position it landed in (or -1): the transpose of the table gather is
 then a gather (`apply_slot_inverse`) instead of a scatter-add.
+
+`bin_two_class` windows the same sort twice: the k_dense highest-count
+tiles keep the full pair budget, the rest a smaller one, each class a
+table of its own with the image tile of every row (`tids`).
 """
 from __future__ import annotations
 
@@ -24,6 +28,27 @@ class BinnedPairs(NamedTuple):
     tab: torch.Tensor            # (n_tiles, mpt) int64 gaussian per slot
     counts: torch.Tensor         # (n_tiles,) int32 valid slots per tile
     inv_pos: torch.Tensor | None  # (N, s2) int32 table position or -1
+
+
+# the row multiple two-class tables and tile-sharded caches pad to: the JAX
+# splat kernels' tile block, kept so that tables, padding and operating
+# points compare with the JAX package's bit for bit (the port's kernels
+# take any row count)
+BLOCK = 8
+
+
+class BinnedPairs2C(NamedTuple):
+    """Two-class binning (`bin_two_class`): a dense tile class at the full
+    pair budget and a sparse class at a smaller one."""
+    tab_d: torch.Tensor      # (Kp, mpt_d) int64 gaussian per slot
+    counts_d: torch.Tensor   # (Kp,) int32
+    tids_d: torch.Tensor     # (Kp,) int32 image tile per dense row
+    tab_s: torch.Tensor      # (Sp, mpt_s)
+    counts_s: torch.Tensor   # (Sp,)
+    tids_s: torch.Tensor     # (Sp,)
+    merge: torch.Tensor      # (n_tiles,) int64 row into [accum_d; accum_s]
+    inv_pos: torch.Tensor | None  # (N, s2) int32 positions in the flat
+    #   layout [dense: r*mpt_d + j (r < Kp) | sparse: Kp*mpt_d + r*mpt_s + j]
 
 
 class SlotInv(NamedTuple):
@@ -117,6 +142,42 @@ def _pair_sort(proj: ProjectedGaussians, tile: int, span_cap: int,
                 start=edges[:-1], end=edges[1:])
 
 
+def _windows(ps: dict, tids: torch.Tensor | None, mpt: int, select: str):
+    """The per-tile windows of the sorted pairs for the tiles `tids` (None:
+    every tile) at the budget mpt: (tab, counts, pid), pid the sorted pair
+    ids of the window in blend order. select="importance" keeps a
+    saturated tile's top-alpha pairs (the sort's rank) and restores exact
+    (depth, pair id) blend order within the kept window; "depth" keeps the
+    depth prefix."""
+    N, p_max = ps["N"], ps["p_max"]
+    start, end = ps["start"], ps["end"]
+    if tids is not None:
+        start, end = start[tids], end[tids]
+    counts = torch.clamp(end - start, max=mpt)
+    j = torch.arange(mpt, device=start.device)
+    window = torch.clamp(start[:, None] + j[None, :], max=p_max - 1)
+    pid = ps["s_id"][window]                                   # (T, mpt)
+    if select == "importance":
+        in_count = j[None, :] < counts[:, None]
+        qd_w = torch.where(in_count, ps["qd"][pid % N].long(),
+                           torch.full_like(pid, 2 ** 30))
+        # lexicographic (depth, pair id) as one int64 key
+        key = (qd_w << 32) | pid
+        pid = torch.gather(pid, 1, torch.argsort(key, dim=1, stable=True))
+    return pid % N, counts.to(torch.int32), pid
+
+
+def _scatter_kept(buf: torch.Tensor, pid: torch.Tensor, counts: torch.Tensor,
+                  base: int) -> None:
+    """buf[pair id] = flat table position (base + row * mpt + j) for the
+    in-count slots of a window table (the importance inverse)."""
+    rows, mpt = pid.shape
+    in_count = (torch.arange(mpt, device=pid.device)[None, :]
+                < counts[:, None])
+    flat = base + torch.arange(rows * mpt, device=pid.device).reshape(rows, mpt)
+    buf[pid[in_count]] = flat[in_count].to(torch.int32)
+
+
 @torch.no_grad()
 def bin_gaussians(proj: ProjectedGaussians, tile: int, span_cap: int,
                   tiles_x: int, tiles_y: int, mpt: int,
@@ -131,45 +192,96 @@ def bin_gaussians(proj: ProjectedGaussians, tile: int, span_cap: int,
     N, p_max, s2 = ps["N"], ps["p_max"], ps["s2"]
     n_tiles = tiles_x * tiles_y
     dev = proj.mean2d.device
-    s_key, s_id, start, end, qd = (ps["s_key"], ps["s_id"], ps["start"],
-                                   ps["end"], ps["qd"])
-    counts = torch.clamp(end - start, max=mpt)
-    j = torch.arange(mpt, device=dev)
-    window = torch.clamp(start[:, None] + j[None, :], max=p_max - 1)
-
-    if select == "importance":
-        pid_w = s_id[window]                                   # (T, mpt)
-        in_count = j[None, :] < counts[:, None]
-        qd_w = torch.where(in_count, qd[pid_w % N].long(),
-                           torch.full_like(pid_w, 2 ** 30))
-        # lexicographic (depth, pair id) as one int64 key
-        key = (qd_w << 32) | pid_w
-        pid_s = torch.gather(pid_w, 1, torch.argsort(key, dim=1, stable=True))
-        tab = pid_s % N
-        inv_pos = None
-        if with_inverse:
-            flatpos = torch.arange(n_tiles * mpt, dtype=torch.int32,
-                                   device=dev).reshape(n_tiles, mpt)
-            buf = torch.full((p_max,), -1, dtype=torch.int32, device=dev)
-            buf[pid_s[in_count]] = flatpos[in_count]
-            inv_pos = buf.reshape(s2, N).T.contiguous()
-        return BinnedPairs(tab=tab, counts=counts.to(torch.int32),
-                           inv_pos=inv_pos)
-
-    tab = (s_id % N)[window]
+    tab, counts, pid = _windows(ps, None, mpt, select)
     inv_pos = None
     if with_inverse:
-        rank = torch.arange(p_max, device=dev)
-        in_image = s_key < ps["sentinel"]
-        tile_safe = torch.clamp(s_key >> ps["depth_bits"],
-                                max=n_tiles - 1).long()
-        off = rank - start[tile_safe]
-        pos = torch.where(in_image & (off < mpt), tile_safe * mpt + off,
-                          torch.full_like(off, -1))
         buf = torch.full((p_max,), -1, dtype=torch.int32, device=dev)
-        buf[s_id] = pos.to(torch.int32)
+        if select == "importance":
+            _scatter_kept(buf, pid, counts, 0)
+        else:
+            s_key, start = ps["s_key"], ps["start"]
+            rank = torch.arange(p_max, device=dev)
+            in_image = s_key < ps["sentinel"]
+            tile_safe = torch.clamp(s_key >> ps["depth_bits"],
+                                    max=n_tiles - 1).long()
+            off = rank - start[tile_safe]
+            pos = torch.where(in_image & (off < mpt), tile_safe * mpt + off,
+                              torch.full_like(off, -1))
+            buf[ps["s_id"]] = pos.to(torch.int32)
         inv_pos = buf.reshape(s2, N).T.contiguous()
-    return BinnedPairs(tab=tab, counts=counts.to(torch.int32), inv_pos=inv_pos)
+    return BinnedPairs(tab=tab, counts=counts, inv_pos=inv_pos)
+
+
+@torch.no_grad()
+def bin_two_class(proj: ProjectedGaussians, tile: int, span_cap: int,
+                  tiles_x: int, tiles_y: int, mpt_d: int, mpt_s: int,
+                  k_dense: int, block: int = BLOCK,
+                  with_inverse: bool = False, select: str = "depth",
+                  priority: torch.Tensor | None = None) -> BinnedPairs2C:
+    """Two-class binning: the k_dense highest-priority tiles (default: by
+    pair count; ties by tile id, a stable sort) keep the full budget mpt_d,
+    every other tile runs mpt_s. Both classes window the same fused-key
+    sort, so a dense tile's row equals `bin_gaussians(mpt_d)`'s and a sparse
+    tile's `bin_gaussians(mpt_s)`'s: when k_dense covers every tile with
+    more than mpt_s pairs, the split renders bit for bit as single-class at
+    mpt_d. Tables pad to `block` rows (count 0, tile 0, slots of index 0);
+    `merge` takes the image's tiles back from [dense rows; sparse rows]."""
+    n_tiles = tiles_x * tiles_y
+    K = int(k_dense)
+    if not 0 < K < n_tiles:
+        raise ValueError(f"k_dense {K} not in (0, {n_tiles})")
+    ps = _pair_sort(proj, tile, span_cap, tiles_x, tiles_y, select)
+    N, p_max, s2 = ps["N"], ps["p_max"], ps["s2"]
+    dev = proj.mean2d.device
+    counts_full = ps["end"] - ps["start"]
+    prio = counts_full if priority is None else priority
+    order = torch.argsort(-prio, stable=True)
+    dense_t, sparse_t = order[:K], order[K:]
+    S = n_tiles - K
+    Kp = -(-K // block) * block
+    Sp = -(-S // block) * block
+
+    def one_class(tids, mpt_c, rows):
+        tab, c, pid = _windows(ps, tids, mpt_c, select)
+        pad = rows - tids.shape[0]
+        return (torch.nn.functional.pad(tab, (0, 0, 0, pad)),
+                torch.nn.functional.pad(c, (0, pad)),
+                torch.nn.functional.pad(tids.to(torch.int32), (0, pad)),
+                pid, c)
+
+    tab_d, counts_d, tids_d, pid_d, c_d = one_class(dense_t, mpt_d, Kp)
+    tab_s, counts_s, tids_s, pid_s, c_s = one_class(sparse_t, mpt_s, Sp)
+    merge = torch.empty((n_tiles,), dtype=torch.long, device=dev)
+    merge[dense_t] = torch.arange(K, device=dev)
+    merge[sparse_t] = Kp + torch.arange(S, device=dev)
+
+    inv_pos = None
+    if with_inverse:
+        buf = torch.full((p_max,), -1, dtype=torch.int32, device=dev)
+        if select == "importance":
+            _scatter_kept(buf, pid_d, c_d, 0)
+            _scatter_kept(buf, pid_s, c_s, Kp * mpt_d)
+        else:
+            rank = torch.empty((n_tiles,), dtype=torch.long, device=dev)
+            rank[order] = torch.arange(n_tiles, device=dev)
+            s_key = ps["s_key"]
+            idx = torch.arange(p_max, device=dev)
+            in_image = s_key < ps["sentinel"]
+            tile_safe = torch.clamp(s_key >> ps["depth_bits"],
+                                    max=n_tiles - 1).long()
+            off = idx - ps["start"][tile_safe]
+            r = rank[tile_safe]
+            is_d = r < K
+            none = torch.full_like(off, -1)
+            pos = torch.where(
+                in_image & is_d & (off < mpt_d), r * mpt_d + off,
+                torch.where(in_image & ~is_d & (off < mpt_s),
+                            Kp * mpt_d + (r - K) * mpt_s + off, none))
+            buf[ps["s_id"]] = pos.to(torch.int32)
+        inv_pos = buf.reshape(s2, N).T.contiguous()
+    return BinnedPairs2C(tab_d=tab_d, counts_d=counts_d, tids_d=tids_d,
+                         tab_s=tab_s, counts_s=counts_s, tids_s=tids_s,
+                         merge=merge, inv_pos=inv_pos)
 
 
 def gather_channels(vals: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
@@ -184,10 +296,18 @@ def slot_inverse(inv_pos: torch.Tensor) -> SlotInv:
                    w=(srt >= 0).to(torch.float32))
 
 
-def apply_slot_inverse(flat: torch.Tensor, inv: SlotInv) -> torch.Tensor:
-    """(P, C) flat cotangent rows -> (N, C) per-gaussian sums: s2 plain row
-    gathers combined by FMAs, the exact transpose of the slot gather."""
-    g = flat[inv.pos[:, 0]] * inv.w[:, 0:1]
-    for k in range(1, inv.pos.shape[1]):
-        g = g + flat[inv.pos[:, k]] * inv.w[:, k:k + 1]
+def weighted_inverse(flat: torch.Tensor, pos: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """sum_k flat[pos[:, k]] * w[:, k:k+1]: (P, C) cotangent rows, (N, s2)
+    in-range positions and (N, s2) f32 weights (0 disables a column) ->
+    (N, C); s2 plain row gathers combined in column order."""
+    g = flat[pos[:, 0]] * w[:, 0:1]
+    for k in range(1, pos.shape[1]):
+        g = g + flat[pos[:, k]] * w[:, k:k + 1]
     return g
+
+
+def apply_slot_inverse(flat: torch.Tensor, inv: SlotInv) -> torch.Tensor:
+    """(P, C) flat cotangent rows -> (N, C) per-gaussian sums, the exact
+    transpose of the slot gather."""
+    return weighted_inverse(flat, inv.pos, inv.w)

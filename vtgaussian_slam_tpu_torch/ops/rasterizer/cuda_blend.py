@@ -12,6 +12,10 @@ run only for tensors on the CPU. K4 feeds densification, evaluation and
 every render of the generic tracking / mapping route; K5 is that route's
 backward.
 
+Both wrappers take `tile_ids` / `tile_offset` as cuda_splat's do (the
+tile-sharded `parallel.sharded_render` renders a rank's rows at its
+offset).
+
 recs (n_tiles, 16, mpt) rows [mean2d.x mean2d.y conic.a conic.b conic.c
 opacity colors(C <= 8) pad], counts (n_tiles,) -> (n_tiles, 256, C).
 K5 returns (n_tiles, mpt, 16) record-row gradients [d mean2d, d conic,
@@ -32,8 +36,8 @@ import torch
 from . import _build
 from .blend import ALPHA_MAX, ALPHA_MIN, T_TERMINATE
 from .cuda_splat import (_split_tf32, block_pixels, box_meets_blocks,
-                         box_radius2, cull_boxes, pixel_moment_basis,
-                         unblock_pixels)
+                         box_radius2, check_tile_ids, cull_boxes, image_tiles,
+                         pixel_moment_basis, unblock_pixels)
 
 RECW = 16
 TILE = 16
@@ -83,11 +87,15 @@ def blend_forward_plain(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
 
 
 def blend_forward(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
-                  n_channels: int = 8) -> torch.Tensor:
-    """K4: composite depth-ordered records per tile -> (T, 256, C)."""
-    if recs.device.type == "cpu":
-        return blend_forward_plain(recs, counts, tiles_x, n_channels)
+                  n_channels: int = 8, tile_ids: torch.Tensor | None = None,
+                  tile_offset: int = 0) -> torch.Tensor:
+    """K4: composite depth-ordered records per tile -> (T, 256, C). Row r
+    renders the image tile `tile_ids[r]` (default r) + `tile_offset`."""
     T = recs.shape[0]
+    if recs.device.type == "cpu":
+        return blend_forward_plain(recs, counts, tiles_x, n_channels,
+                                   image_tiles(T, tile_ids, tile_offset,
+                                               recs.device))
     _build.require(recs.dtype == torch.float32 and recs.dim() == 3
                    and recs.shape[1] == RECW and recs.is_contiguous() and T >= 1,
                    f"recs must be contiguous f32 (T, 16, mpt), got "
@@ -96,12 +104,13 @@ def blend_forward(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
                    and counts.is_contiguous() and counts.device == recs.device,
                    "counts must be contiguous int32 (T,) on the records' device")
     _build.require(1 <= n_channels <= 8, "1 <= n_channels <= 8")
+    tids = check_tile_ids(tile_ids, T, recs.device)
     out = torch.empty((T, TPX, n_channels), dtype=torch.float32,
                       device=recs.device)
     lib = _build.library("blend")
-    err = lib.vtgs_blend_fwd(recs.data_ptr(), counts.data_ptr(), T,
-                             recs.shape[2], tiles_x, n_channels, out.data_ptr(),
-                             _build.stream_of(recs))
+    err = lib.vtgs_blend_fwd(recs.data_ptr(), counts.data_ptr(), tids, T,
+                             recs.shape[2], tiles_x, int(tile_offset),
+                             n_channels, out.data_ptr(), _build.stream_of(recs))
     _build.check(lib, err, "vtgs_blend_fwd launch")
     blend_forward.launches += 1
     return out
@@ -269,12 +278,16 @@ def blend_backward_plain(recs: torch.Tensor, counts: torch.Tensor,
 
 
 def blend_backward(recs: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
-                   g: torch.Tensor, tiles_x: int) -> torch.Tensor:
-    """K5: replay the walk -> (T, mpt, 16) per-record gradient rows."""
-    if recs.device.type == "cpu":
-        return blend_backward_plain(recs, counts, out, g, tiles_x)
-    g = g.contiguous()
+                   g: torch.Tensor, tiles_x: int,
+                   tile_ids: torch.Tensor | None = None,
+                   tile_offset: int = 0) -> torch.Tensor:
+    """K5: replay the walk -> (T, mpt, 16) per-record gradient rows; a row of
+    count 0 gives zeros whatever its cotangent."""
     T, _, M = recs.shape
+    if recs.device.type == "cpu":
+        return blend_backward_plain(recs, counts, out, g, tiles_x, image_tiles(
+            T, tile_ids, tile_offset, recs.device))
+    g = g.contiguous()
     C = out.shape[-1] if out.dim() == 3 else 0
     _build.require(recs.dtype == torch.float32 and recs.dim() == 3
                    and recs.shape[1] == RECW and recs.is_contiguous() and T >= 1,
@@ -288,10 +301,12 @@ def blend_backward(recs: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
         _build.require(t.dtype == torch.float32 and t.shape == (T, TPX, C)
                        and t.is_contiguous() and t.device == recs.device,
                        "accum / cotangent must be contiguous f32 (T, 256, C)")
+    tids = check_tile_ids(tile_ids, T, recs.device)
     grad = torch.empty((T, M, RECW), dtype=torch.float32, device=recs.device)
     lib = _build.library("blend")
-    err = lib.vtgs_blend_bwd(recs.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                             g.data_ptr(), T, M, tiles_x, C, grad.data_ptr(),
+    err = lib.vtgs_blend_bwd(recs.data_ptr(), counts.data_ptr(), tids,
+                             out.data_ptr(), g.data_ptr(), T, M, tiles_x,
+                             int(tile_offset), C, grad.data_ptr(),
                              _build.stream_of(recs))
     _build.check(lib, err, "vtgs_blend_bwd launch")
     blend_backward.launches += 1

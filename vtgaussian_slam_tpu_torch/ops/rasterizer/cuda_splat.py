@@ -26,6 +26,12 @@ mirrors of what only the kernels do, for the CPU tests alone: `slot_box`
 (the per-slot cull box), `splat_forward_grouped` (K1's box cull and grouped
 select blends) and `backward_sums_tf32` (the backwards' split products).
 
+Every wrapper takes `tile_ids` (the image tile of each row: two-class
+binning's tile subsets) and `tile_offset` (added to it: a tile-sharded
+rank's first tile), as the JAX kernels' `tids` and `meta[1]`; the row
+still addresses every operand. A row of count 0 renders nothing and its
+backward rows are zeros, whatever its cotangent.
+
 Layouts: slots8 (T, 8, mpt) rows [wx wy wz logit_op log_scale r g b];
 accum (T, 8, 256) channels (r, g, b, z, 1, z^2, T_end, 0). Channel 6 is
 the final transmittance (0 where the walk terminated) and carries no
@@ -460,6 +466,30 @@ def splat_backward_all_plain(slots8, counts, cp, tiles_x, out, g,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+def image_tiles(T: int, tile_ids, tile_offset: int, device):
+    """The image tile of each of T operand rows, as the kernels' `image_tile`
+    reads it: `tile_ids` (two-class binning's per-row tiles; None: the rows
+    themselves) plus `tile_offset` (a tile-sharded rank's first tile). None
+    when both are absent, so the plain versions take their own default."""
+    if tile_ids is None and tile_offset == 0:
+        return None
+    ids = (torch.arange(T, device=device) if tile_ids is None
+           else tile_ids.to(device))
+    return ids + int(tile_offset)
+
+
+def check_tile_ids(tile_ids, T: int, dev) -> int | None:
+    """The kernels' tile-id operand: a pointer to (T,) contiguous int32 on
+    the operands' device, or None (NULL: the rows themselves)."""
+    if tile_ids is None:
+        return None
+    _build.require(tile_ids.dtype == torch.int32 and tile_ids.shape == (T,)
+                   and tile_ids.is_contiguous() and tile_ids.device == dev,
+                   "tile_ids must be contiguous int32 (T,) on the operands' "
+                   "device")
+    return tile_ids.data_ptr()
+
+
 def _check_inputs(slots8, counts, cp, *extra):
     dev = slots8.device
     _build.require(slots8.dtype == torch.float32 and slots8.dim() == 3
@@ -484,17 +514,23 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 def splat_forward(slots8: torch.Tensor, R9: torch.Tensor, trans: torch.Tensor,
-                  counts: torch.Tensor, cam: Camera, tiles_x: int) -> torch.Tensor:
-    """K1: slots8 (T, 8, mpt) + pose -> accum (T, 8, 256)."""
+                  counts: torch.Tensor, cam: Camera, tiles_x: int,
+                  tile_ids: torch.Tensor | None = None,
+                  tile_offset: int = 0) -> torch.Tensor:
+    """K1: slots8 (T, 8, mpt) + pose -> accum (T, 8, 256). Row r renders the
+    image tile `tile_ids[r]` (default r) + `tile_offset`."""
     cp = cp_vector(R9, trans, cam)
-    if slots8.device.type == "cpu":
-        return splat_forward_plain(slots8, counts, cp, tiles_x)
-    _check_inputs(slots8, counts, cp)
     T, _, M = slots8.shape
+    if slots8.device.type == "cpu":
+        return splat_forward_plain(slots8, counts, cp, tiles_x, image_tiles(
+            T, tile_ids, tile_offset, slots8.device))
+    _check_inputs(slots8, counts, cp)
+    tids = check_tile_ids(tile_ids, T, slots8.device)
     out = torch.empty((T, NCH, TPX), dtype=torch.float32, device=slots8.device)
     lib = _build.library("splat")
-    err = lib.vtgs_splat_fwd(_ptr(slots8), _ptr(counts), _ptr(cp), T, M,
-                             tiles_x, _ptr(out), _build.stream_of(slots8))
+    err = lib.vtgs_splat_fwd(_ptr(slots8), _ptr(counts), tids, _ptr(cp), T, M,
+                             tiles_x, int(tile_offset), _ptr(out),
+                             _build.stream_of(slots8))
     _build.check(lib, err, "vtgs_splat_fwd launch")
     splat_forward.launches += 1
     return out
@@ -504,18 +540,21 @@ splat_forward.launches = 0
 
 
 def _splat_backward(name, wrapper, plain, out_shape, slots8, R9, trans, counts,
-                    out, g, cam, tiles_x):
+                    out, g, cam, tiles_x, tile_ids, tile_offset):
     cp = cp_vector(R9, trans, cam)
+    T, _, M = slots8.shape
     if slots8.device.type == "cpu":
-        return plain(slots8, counts, cp, tiles_x, out, g)
+        return plain(slots8, counts, cp, tiles_x, out, g, image_tiles(
+            T, tile_ids, tile_offset, slots8.device))
     g = g.contiguous()
     _check_inputs(slots8, counts, cp, out, g)
-    T, _, M = slots8.shape
+    tids = check_tile_ids(tile_ids, T, slots8.device)
     res = torch.empty(out_shape(T, M), dtype=torch.float32,
                       device=slots8.device)
     lib = _build.library("splat")
-    err = getattr(lib, name)(_ptr(slots8), _ptr(counts), _ptr(cp), _ptr(out),
-                             _ptr(g), T, M, tiles_x, _ptr(res),
+    err = getattr(lib, name)(_ptr(slots8), _ptr(counts), tids, _ptr(cp),
+                             _ptr(out), _ptr(g), T, M, tiles_x,
+                             int(tile_offset), _ptr(res),
                              _build.stream_of(slots8))
     _build.check(lib, err, f"{name} launch")
     wrapper.launches += 1
@@ -523,34 +562,41 @@ def _splat_backward(name, wrapper, plain, out_shape, slots8, R9, trans, counts,
 
 
 def splat_backward_pose(slots8, R9, trans, counts, out, g, cam: Camera,
-                        tiles_x: int) -> torch.Tensor:
-    """K2: replay + pose chain -> (T, 12) per-tile [dR(9), dt(3)] partials."""
+                        tiles_x: int, tile_ids=None,
+                        tile_offset: int = 0) -> torch.Tensor:
+    """K2: replay + pose chain -> (T, 12) per-tile [dR(9), dt(3)] partials.
+    A row of count 0 gives zeros whatever its cotangent."""
     return _splat_backward("vtgs_splat_bwd_pose", splat_backward_pose,
                            splat_backward_pose_plain, lambda T, M: (T, 12),
-                           slots8, R9, trans, counts, out, g, cam, tiles_x)
+                           slots8, R9, trans, counts, out, g, cam, tiles_x,
+                           tile_ids, tile_offset)
 
 
 splat_backward_pose.launches = 0
 
 
 def splat_backward_vals_rows(slots8, R9, trans, counts, out, g, cam: Camera,
-                             tiles_x: int) -> torch.Tensor:
+                             tiles_x: int, tile_ids=None,
+                             tile_offset: int = 0) -> torch.Tensor:
     """K3: replay without the mean chain -> (T, mpt, 8) per-slot rows."""
     return _splat_backward("vtgs_splat_bwd_vals_rows", splat_backward_vals_rows,
                            splat_backward_vals_rows_plain,
                            lambda T, M: (T, M, 8),
-                           slots8, R9, trans, counts, out, g, cam, tiles_x)
+                           slots8, R9, trans, counts, out, g, cam, tiles_x,
+                           tile_ids, tile_offset)
 
 
 splat_backward_vals_rows.launches = 0
 
 
 def splat_backward_all(slots8, R9, trans, counts, out, g, cam: Camera,
-                       tiles_x: int) -> torch.Tensor:
+                       tiles_x: int, tile_ids=None,
+                       tile_offset: int = 0) -> torch.Tensor:
     """K6: replay + full per-slot chain -> (T, 8, mpt) camera-frame rows."""
     return _splat_backward("vtgs_splat_bwd_all", splat_backward_all,
                            splat_backward_all_plain, lambda T, M: (T, 8, M),
-                           slots8, R9, trans, counts, out, g, cam, tiles_x)
+                           slots8, R9, trans, counts, out, g, cam, tiles_x,
+                           tile_ids, tile_offset)
 
 
 splat_backward_all.launches = 0
