@@ -28,12 +28,15 @@ fixed_section_ids and the paging lists exact; tracked poses within 2e-4 (a
 few Adam steps of lr 4e-4 / 2e-3 carrying the kernels' ~1e-4 relative
 differences), but for one frame at most whose best candidate lands on
 another iteration of a near tie, held to one Adam step; the trained fields
-as test_torch_slice.py bounds them, every entry within lr x the mapping
-iterations of the run, and 98% (the slice test: 99%) within 5e-4 + 1e-3
-rel: a section here takes up to four mapping phases, and a Gaussian at the
-edge of a tile's reach (the binning's radius test on projections that
-differ by an ulp) is binned on one side only, so its gradient differs every
-iteration and Adam moves it several steps apart"""
+on the JAX engine's own rounding spread, as test_torch_slice.py holds them
+(torch_port_util.assert_fields_within_spread; the JAX engine's runs on
+frames one ulp off take the unperturbed run's poses, as the port does),
+and every entry within lr x the mapping iterations of the run: a
+section here takes up to four mapping phases, and a Gaussian at the edge
+of a tile's reach (the binning's radius test on projections that differ by
+an ulp: XLA contracts the projection into FMAs, the port rounds each
+operation as written) is binned on one side only, so its gradient differs
+every iteration and Adam moves it several steps apart"""
 from collections import defaultdict
 
 import jax
@@ -42,9 +45,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_util
 import vtgaussian_slam_tpu.core.mapping as JM
 from test_torch_slice import _config
-from torch_port_util import first_exp_spent, np_  # noqa: F401
+from torch_port_util import (assert_fields_within_spread,  # noqa: F401
+                             first_exp_spent, jax_spread, np_,
+                             section_fields)
 from vtgaussian_slam_tpu.core import pipeline as JP
 from vtgaussian_slam_tpu.ops import image as JI
 from vtgaussian_slam_tpu_torch.core import pipeline as TP
@@ -200,20 +206,51 @@ def _assert_poses(tracked, jeng, lrs, flips=1):
     assert len(off) <= flips, off
 
 
-def _assert_fields(teng, jeng, cfg, frames, close_share=0.98):
-    lrs = cfg["mapping"]["lrs"]
+def _jax_spread(cfg, jeng, frames):
+    """The JAX engine's rounding spread on this run: runs on one-ulp
+    frames, each tracked pose replaced by the first run's."""
+    return jax_spread(cfg, frames, section_fields(jeng, False),
+                      pin_poses=(np.asarray(jeng.traj.quats),
+                                 np.asarray(jeng.traj.trans)))
+
+
+def _assert_fields(teng, jeng, cfg, frames, spread):
     for i, (j_sec, t_sec) in enumerate(zip(jeng.sections, teng.sections)):
         n = int(j_sec.n_active)
-        jp, tp = j_sec.params, t_sec.params
-        np.testing.assert_allclose(np_(tp.means3d[:n]),
-                                   np.asarray(jp.means3d[:n]),
+        np.testing.assert_allclose(np_(t_sec.params.means3d[:n]),
+                                   np.asarray(j_sec.params.means3d[:n]),
                                    rtol=1e-5, atol=1e-5)
-        for f in ("rgb_colors", "logit_opacities", "log_scales"):
-            a, b = np_(getattr(tp, f)[:n]), np.asarray(getattr(jp, f)[:n])
-            close = np.abs(a - b) <= 5e-4 + 1e-3 * np.abs(b)
-            assert close.mean() > close_share, (i, f, close.mean())
-            reach = lrs[f] * frames * ITERS
-            assert np.abs(a - b).max() <= reach, (f, np.abs(a - b).max())
+    assert_fields_within_spread(section_fields(teng, True),
+                                section_fields(jeng, False), spread,
+                                cfg["mapping"]["lrs"], frames * ITERS)
+
+
+@pytest.fixture(scope="module")
+def replica_spread(replica):
+    cfg, jeng, *_ = replica
+    return _jax_spread(cfg, jeng, FRAMES)
+
+
+def test_replica_field_fault_fails_the_parity_check(replica, replica_spread):
+    """Negative control of the yardstick on this run's four sections: the
+    port with K3's opacity row lacking the sigmoid's (1 - sig) factor
+    fails the logit field check alone (sections 0 and 1, each on its own
+    spread: 46-47% of logits outside the band where 26-33% are allowed;
+    the fault also moves rgb and 18 densified means, which other checks
+    catch first)."""
+    from test_torch_parity_controls import _k3_opacity_without_sigmoid_factor
+    cfg, jeng, _, _, _, rec, _ = replica
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JI, "cv2", None)
+        _k3_opacity_without_sigmoid_factor(mp)
+        teng, _, _ = _port_run(cfg, rec, jeng, FRAMES)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_port_util, "FIELDS", ("logit_opacities",))
+        with pytest.raises(AssertionError, match="logit_opacities"):
+            assert_fields_within_spread(section_fields(teng, True),
+                                        section_fields(jeng, False),
+                                        replica_spread, cfg["mapping"]["lrs"],
+                                        FRAMES * ITERS)
 
 
 def test_replica_sections_and_selections_match(replica):
@@ -233,9 +270,9 @@ def test_replica_poses_match(replica):
     _assert_poses(tracked, jeng, cfg["tracking"]["lrs"])
 
 
-def test_replica_trained_fields_match(replica):
+def test_replica_trained_fields_match(replica, replica_spread):
     cfg, jeng, teng, *_ = replica
-    _assert_fields(teng, jeng, cfg, FRAMES)
+    _assert_fields(teng, jeng, cfg, FRAMES, replica_spread)
 
 
 def test_paging_off_gives_the_same_bits(replica):

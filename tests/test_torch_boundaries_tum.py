@@ -14,10 +14,15 @@ draws injected (test_torch_boundaries.py).
 Tolerances as in test_torch_boundaries.py (each frame tracked from the
 JAX engine's state): counts and selections exact, tracked poses within
 2e-4 but for one near-tie frame held to one Adam step, trained fields
-every entry within Adam's reach and 97% (there: 98%) within 5e-4 + 1e-3
-rel, since the generic route bins afresh every mapping iteration, so the
-pairs at the edge of a tile's reach can fall to one side more often"""
-from test_torch_boundaries import _assert_fields, _assert_poses, _run_pair
+every entry within Adam's reach and on the JAX engine's own rounding
+spread (its runs on one-ulp frames with the first run's poses).
+The generic route bins afresh every mapping iteration, so a pair at the
+edge of a tile's reach that one side bins and the other not changes which
+pairs a saturated tile's depth window keeps (at frame 0 here tile 4 keeps
+three Gaussians in the JAX engine, among them 1659, and three others in
+the port and in the JAX package's own op-by-op evaluation)"""
+from test_torch_boundaries import (_assert_fields, _assert_poses, _jax_spread,
+                                   _run_pair)
 from test_torch_slice import _config
 from torch_port_util import first_exp_spent  # noqa: F401
 
@@ -39,4 +44,4 @@ def test_tum_style_generic_route_matches(tmp_path):
     assert tstates[-1]["earliest_corr"] == [[2, "selected_baseframes", [0]]]
     assert tstates[-1]["fixed"] == (0, 0)
     _assert_poses(tracked, jeng, cfg["tracking"]["lrs"])
-    _assert_fields(teng, jeng, cfg, FRAMES, close_share=0.97)
+    _assert_fields(teng, jeng, cfg, FRAMES, _jax_spread(cfg, jeng, FRAMES))

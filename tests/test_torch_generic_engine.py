@@ -24,30 +24,14 @@ of the reach (measured). Means: 1e-5 for frame 0's Gaussians; densified
 ones are back-projected at the tracked pose, which agrees to ~5e-6 here on
 this route (measured), and a 5e-6 rotation
 moves a point 3 m away by ~3e-5: atol 1e-4."""
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from test_torch_slice import FRAMES, ITERS, _config
+from test_torch_slice import FRAMES, ITERS, _config, slice_draws
 from torch_port_util import np_
 from vtgaussian_slam_tpu.core import pipeline as JP
 from vtgaussian_slam_tpu.ops import image as JI
 from vtgaussian_slam_tpu_torch.core import pipeline as TP
-
-
-def _jax_draws(seed):
-    """The JAX engine's keyframe draws: one key split per mapping phase,
-    uniform over the t + 1 keyframes of frame t's buffer (a lone frame at
-    the section's first frame)."""
-    rng = jax.random.PRNGKey(seed)
-    draws = {}
-    for t in range(FRAMES):
-        rng, k = jax.random.split(rng)
-        draws[t] = [int(jax.random.randint(jax.random.fold_in(k, i), (), 0,
-                                           jnp.asarray(t + 1, jnp.int32)))
-                    for i in range(ITERS)]
-    return draws
 
 
 @pytest.mark.parametrize("variant", ["no_cache", "anisotropic"])
@@ -60,7 +44,7 @@ def test_generic_route_three_frames_match_jax_engine(tmp_path, monkeypatch,
     else:
         cfg["gaussian_distribution"] = "anisotropic"
     jeng = JP.VTGaussianSLAM(cfg)
-    draws = _jax_draws(cfg["seed"])
+    draws = slice_draws(cfg)
     j_n = [int(jeng.sections[0].n_active)]
     jeng.process_frame_zero()
     for t in range(1, FRAMES):

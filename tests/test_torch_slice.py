@@ -9,15 +9,22 @@ generators give different streams). Both use the numpy Canny edge mask.
 
 Tolerances: poses 2e-4 (a few Adam steps of lr 4e-4 / 2e-3 carrying the
 kernels' ~1e-4 relative differences); Gaussian counts exact (the
-densification masks are thresholds on renders that agree to ~1e-5); the
-trained fields like the mapping-phase test (99% within 5e-4 + 1e-3 rel,
-and every entry within lr x the run's mapping iterations)."""
+densification masks are thresholds on renders that agree to ~1e-5); after
+frame 0, which is well conditioned, 99.5% of every trained field within
+5e-4 + 1e-3 rel; after frame 2 the trained fields on the JAX engine's own
+rounding spread (torch_port_util.assert_fields_within_spread): the L1
+mapping loss flips residual signs on rounding-level render differences and
+Adam turns a flipped near-zero gradient into a full step, so by frame 2 the
+JAX engine itself, fed frames one ulp off, moves up to ~8% of the opacity
+logits out of that band (measured), and every entry within lr x the run's
+mapping iterations."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_port_util import np_
+from torch_port_util import (FIELDS, assert_fields_within_spread, band_gap,
+                             jax_spread, np_, section_fields)
 from vtgaussian_slam_tpu.core import pipeline as JP
 from vtgaussian_slam_tpu.datasets.synthetic import \
     SyntheticRoomDataset as JSynth
@@ -93,11 +100,9 @@ def test_auto_pair_budget_matches(args):
     assert TP.auto_pair_budget(*args) == JP.auto_pair_budget(*args)
 
 
-def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
-    monkeypatch.setattr(JI, "cv2", None)        # the numpy Canny on both
-    cfg = _config(tmp_path)
-    jeng = JP.VTGaussianSLAM(cfg)
-    # the JAX engine's only key splits on this path: one per mapping phase
+def slice_draws(cfg) -> dict:
+    """The JAX engine's keyframe draws on this path: one key split per
+    mapping phase, uniform over the t + 1 keyframes of frame t."""
     rng = jax.random.PRNGKey(cfg["seed"])
     draws = {}
     for t in range(FRAMES):
@@ -105,40 +110,66 @@ def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
         draws[t] = [int(jax.random.randint(jax.random.fold_in(k, i), (), 0,
                                            jnp.asarray(t + 1, jnp.int32)))
                     for i in range(ITERS)]
-    j_n = [int(jeng.sections[0].n_active)]
-    jeng.process_frame_zero()
-    for t in range(1, FRAMES):
-        jeng.process_frame(t)
-        j_n.append(int(jeng.sections[0].n_active))
+    return draws
 
+
+def run_slice(eng, port: bool):
+    """FRAMES frames through an engine: (per-frame Gaussian counts, the
+    section fields after frame 0, after the last frame)."""
+    n = [int(eng.sections[0].n_active)]
+    for t in range(FRAMES):
+        if t == 0 and not port:
+            eng.process_frame_zero()
+        else:
+            eng.process_frame(t)
+        if t == 0:
+            after0 = section_fields(eng, port)
+        else:
+            n.append(int(eng.sections[0].n_active))
+    return n, after0, section_fields(eng, port)
+
+
+def run_jax_slice(cfg):
+    """The JAX engine's run and its rounding spread (one-ulp frames)."""
+    jeng = JP.VTGaussianSLAM(cfg)
+    run = run_slice(jeng, False)
+    return jeng, run, jax_spread(cfg, FRAMES, run[2])
+
+
+def run_port_slice(cfg, draws):
     teng = TP.VTGaussianSLAM(cfg, device="cpu",
                              map_draws=lambda t, n, count: (
                                  draws[t][:n] if t in draws else None))
-    t_n = [teng.sections[0].n_active]
-    for t in range(FRAMES):
-        teng.process_frame(t)
-        if t:
-            t_n.append(teng.sections[0].n_active)
+    return teng, run_slice(teng, True)
+
+
+def assert_slice_parity(cfg, jeng, jrun, teng, trun, spread):
+    (j_n, j0, j_end), (t_n, t0, t_end) = jrun, trun
     assert t_n == j_n
     assert j_n[-1] > j_n[0], "densification added Gaussians"
     np.testing.assert_allclose(np_(teng.traj.quats[:FRAMES]),
                                np.asarray(jeng.traj.quats[:FRAMES]), atol=2e-4)
     np.testing.assert_allclose(np_(teng.traj.trans[:FRAMES]),
                                np.asarray(jeng.traj.trans[:FRAMES]), atol=2e-4)
-    jp = jeng.sections[0].params
-    tp = teng.sections[0].params
     n = j_n[-1]
-    np.testing.assert_allclose(np_(tp.means3d[:n]), np.asarray(jp.means3d[:n]),
+    np.testing.assert_allclose(np_(teng.sections[0].params.means3d[:n]),
+                               np.asarray(jeng.sections[0].params.means3d[:n]),
                                rtol=1e-5, atol=1e-5)
     lrs = cfg["mapping"]["lrs"]
-    for f in ("rgb_colors", "logit_opacities", "log_scales"):
-        a, b = np_(getattr(tp, f)[:n]), np.asarray(getattr(jp, f)[:n])
-        close = np.abs(a - b) <= 5e-4 + 1e-3 * np.abs(b)
-        assert close.mean() > 0.99, (f, close.mean())
-        # every entry within lr * (mapping iterations of the run), the most
-        # Adam moves an entry: an outlier past it is a fault, not rounding
-        reach = lrs[f] * FRAMES * ITERS
-        assert np.abs(a - b).max() <= reach, (f, np.abs(a - b).max() / reach)
+    # frame 0: the map of the first frame's own pixels, well conditioned
+    for f in FIELDS:
+        share, big = band_gap(t0[0][1][f], j0[0][1][f])
+        assert share <= 0.005, ("frame 0", f, share)
+        assert big <= lrs[f] * ITERS, ("frame 0", f, big)
+    assert_fields_within_spread(t_end, j_end, spread, lrs, FRAMES * ITERS)
+
+
+def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
+    monkeypatch.setattr(JI, "cv2", None)        # the numpy Canny on both
+    cfg = _config(tmp_path)
+    jeng, jrun, spread = run_jax_slice(cfg)
+    teng, trun = run_port_slice(cfg, slice_draws(cfg))
+    assert_slice_parity(cfg, jeng, jrun, teng, trun, spread)
     # frame baseframe_every is a section boundary: it spawns section 1
     teng.process_frame(cfg["baseframe_every"])
     assert len(teng.sections) == 2 and teng.sections[1].n_active > 0

@@ -311,20 +311,14 @@ def test_engine_operating_point_matches_jax(tmp_path, monkeypatch):
 
 
 def test_three_frames_two_class_match_jax_engine(tmp_path, monkeypatch):
-    from test_torch_slice import FRAMES, ITERS
+    from test_torch_slice import FRAMES, slice_draws
     from vtgaussian_slam_tpu.core import pipeline as JP
     from vtgaussian_slam_tpu.ops import image as JI
     from vtgaussian_slam_tpu_torch.core import pipeline as TP
     monkeypatch.setattr(JI, "cv2", None)        # the numpy Canny on both
     cfg = _engine_config(tmp_path)
     jeng = JP.VTGaussianSLAM(cfg)
-    rng = jax.random.PRNGKey(cfg["seed"])
-    draws = {}
-    for t in range(FRAMES):
-        rng, k = jax.random.split(rng)
-        draws[t] = [int(jax.random.randint(jax.random.fold_in(k, i), (), 0,
-                                           jnp.asarray(t + 1, jnp.int32)))
-                    for i in range(ITERS)]
+    draws = slice_draws(cfg)
     for t in range(FRAMES):
         jeng.process_frame(t)
     teng = TP.VTGaussianSLAM(cfg, device="cpu",
