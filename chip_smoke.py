@@ -17,9 +17,10 @@ Phases (any failure raises and the exit code is non-zero):
   2b. the generic route: the same proxy with `tpu.track_cache` and
      `tpu.map_binned` off, so tracking and mapping render from scratch
      every iteration (project, bin, K4, and the backward K5 through the
-     inverse map and autograd); frame 0 + 2 tracked frames at the same
+     inverse map and autograd); the slice's 5 frames at the same
      iteration budgets, printed beside the slice's times for the same
-     frames, under the same guards, with its own zeroed launch counts;
+     frames, under the same guards, with its own zeroed launch counts, so
+     that the two routes' per-frame PSNR compare like for like;
   2c. section boundaries on the default routes: the same proxy with
      baseframe_every 3 for 10 frames (60 tracking iterations, 80 on the
      first section, 100 mapping iterations, the pair budget's closed loop
@@ -171,7 +172,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NUM_FRAMES = 5
-GENERIC_FRAMES = 3    # frame 0 + 2 tracked frames on the generic route
+GENERIC_FRAMES = NUM_FRAMES   # the generic route on the slice's frames
 BOUNDARY_BFE, BOUNDARY_FRAMES = 3, 10     # phase 2c: four sections
 GENERIC_BFE, GENERIC_BOUNDARY_FRAMES = 2, 4   # phase 2d: one boundary
 TRACK_ITERS = 80      # room0 base1_num_iters

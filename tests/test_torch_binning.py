@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (N_TILES, TILES_X, jax_cam, np_, scene_np,
-                             torch_cam)
+from torch_port_util import (N_TILES, TILES_X, assert_close_scaled, jax_cam,
+                             np_, scene_np, torch_cam)
 from vtgaussian_slam_tpu.ops.rasterizer import binning as JB
 from vtgaussian_slam_tpu.ops.rasterizer.projection import \
     project_gaussians as j_project
@@ -119,3 +119,44 @@ def test_gather_and_apply_slot_inverse():
     rhs = (vals * np_(TB.apply_slot_inverse(torch.as_tensor(flat_live),
                                             t_inv))).sum()
     np.testing.assert_allclose(lhs, rhs, rtol=1e-4)
+
+
+def test_table_gather_matches_jax():
+    """Forward bit for bit; the gradient of a loss over in-count slots (the
+    only ones the renderers give a cotangent) against `jax.grad` through
+    the JAX package's custom VJP, on a real table with its inverse map."""
+    import jax
+    jproj, _ = _project_both(seed=3)
+    ref = JB.bin_gaussians(jproj, 16, 2, TILES_X, 3, MPT, with_inverse=True,
+                           select="importance")
+    n = jproj.mean2d.shape[0]
+    rng = np.random.default_rng(7)
+    vals = rng.standard_normal((n, 5)).astype(np.float32)
+    w = rng.standard_normal((*ref.tab.shape, 5)).astype(np.float32)
+    mask = (np.arange(MPT)[None, :] < np.asarray(ref.counts)[:, None]
+            )[..., None].astype(np.float32)
+    assert mask.mean() < 1, "some tiles must have slots past their count"
+    tab = torch.as_tensor(np.asarray(ref.tab).copy())
+    inv = torch.as_tensor(np.asarray(ref.inv_pos).copy())
+    v = torch.tensor(vals, requires_grad=True)
+    out = TB.table_gather(v, tab, inv)
+    np.testing.assert_array_equal(
+        np_(out), np.asarray(JB.table_gather(jnp.asarray(vals), ref.tab,
+                                             ref.inv_pos)))
+    (out * torch.as_tensor(w) * torch.as_tensor(mask)).sum().backward()
+    g_ref = jax.grad(lambda x: jnp.sum(JB.table_gather(x, ref.tab, ref.inv_pos)
+                                       * w * mask))(jnp.asarray(vals))
+    assert_close_scaled(v.grad, g_ref, 1e-6, "table_gather grad")
+
+
+def test_table_gather_gradcheck():
+    """f64 gradcheck on a hand-made table of 2 tiles x 3 slots: slot (1, 2)
+    lies past its tile's count (masked), Gaussian 2 owns two slots."""
+    tab = torch.tensor([[0, 2, 1], [2, 3, 3]])
+    inv = torch.tensor([[0, -1], [2, -1], [1, 3], [4, -1]], dtype=torch.int32)
+    mask = torch.tensor([[1.0, 1, 1], [1, 1, 0]])[..., None]
+    v = torch.randn(4, 3, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda x: TB.table_gather(x, tab, inv) * mask, (v,))

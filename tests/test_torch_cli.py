@@ -209,6 +209,29 @@ def test_smoke_cli_writes_the_contract_and_scores_across_packages(
     assert (_txt(rdir, "psnr") >= psnr_train - 1e-3).all()
 
 
+def test_save_params_writes_the_jax_packages_file(tmp_path):
+    """`utils.common.save_params` (which the CLI's params_ls.npy goes
+    through) against the JAX package's on the same sections: the same
+    bytes, loading to the same dicts, keys, dtypes and values."""
+    from torch_port_util import scene_np
+    from vtgaussian_slam_tpu.utils.common import save_params as j_save
+    from vtgaussian_slam_tpu_torch.utils.common import save_params as t_save
+    params_ls = [scene_np(300, 1), scene_np(200, 2)]
+    got = t_save(params_ls, str(tmp_path / "port"))
+    ref = j_save(params_ls, str(tmp_path / "jax"), name="p.npy")
+    assert got == os.path.join(str(tmp_path / "port"), "params_ls.npy")
+    with open(got, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
+    a = np.load(got, allow_pickle=True)
+    b = np.load(ref, allow_pickle=True)
+    assert a.dtype == b.dtype == object and len(a) == len(b) == 2
+    for p, q in zip(a, b):
+        assert sorted(p) == sorted(q)
+        for k in p:
+            assert p[k].dtype == q[k].dtype, k
+            np.testing.assert_array_equal(p[k], q[k])
+
+
 def test_jax_written_params_score_the_same_in_the_port(tmp_path, capsys):
     sets = ["--set", f"workdir={tmp_path}", "--set", "eval_every=2"]
     rdir = os.path.join(str(tmp_path), "smoke_3")

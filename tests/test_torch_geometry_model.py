@@ -157,3 +157,18 @@ def test_adam_matches_jax():
     np.testing.assert_array_equal(np_(tp[1]), params[1])
     np.testing.assert_allclose(np_(ts.nu[1]), np.asarray(js.nu[1]), rtol=1e-6)
     assert ts.count == int(js.count) == 5
+
+
+def test_relative_transformation_matches_jax():
+    """Batched (2, 3, 4, 4) poses, and one against a batch (broadcast)."""
+    q = _quats(12, 5)
+    t = np.random.default_rng(6).standard_normal((12, 3)).astype(np.float32)
+    T = np.array(jgeo.pose_to_w2c(jgeo.normalize(jnp.asarray(q)),
+                                  jnp.asarray(t))).reshape(2, 2, 3, 4, 4)
+    for a, b in ((T[0], T[1]), (T[0, 0, 0], T[1])):
+        np.testing.assert_allclose(
+            np_(tgeo.relative_transformation(torch.as_tensor(a),
+                                             torch.as_tensor(b))),
+            np.asarray(jgeo.relative_transformation(jnp.asarray(a),
+                                                    jnp.asarray(b))),
+            rtol=RTOL, atol=ATOL)

@@ -4,9 +4,16 @@ must fail the parity checks that hold the port against the JAX package.
 Engine (test_torch_slice's config, 3 frames): the JAX engine and its
 one-ulp spread run once; each control runs the port with one fault and
 names the check it trips: the exact Gaussian counts, or the trained fields
-on the spread yardstick (torch_port_util.assert_fields_within_spread).
+on the spread yardstick (torch_port_util.assert_fields_within_spread), or
+the densified means held at the poses they were built from
+(torch_port_util.assert_means_at_own_poses).
 test_torch_boundaries.py holds the first fault against that yardstick on
 its four-section run as well.
+
+Depth-prefix truncation (test_torch_truncation_parity's config, binned
+route): a tile window that keeps the wrong pairs at the budget must move
+the port's truncation loss (W6) off the JAX package's by more than that
+test allows.
 
 A fault that scales a gradient by a constant (e.g. K3's opacity row x 1.01)
 trips neither: Adam divides each entry's step by its own gradient's RMS,
@@ -23,16 +30,18 @@ import pytest
 import torch
 
 import test_torch_p2p as P2P
+import test_torch_truncation_parity as TR
 from test_torch_slice import (FRAMES, ITERS, _config, run_jax_slice,
                               run_port_slice, slice_draws)
 from torch_port_util import (assert_fields_within_spread,  # noqa: F401
-                             one_thread)
+                             assert_means_at_own_poses, one_thread)
 from vtgaussian_slam_tpu.ops import image as JI
 from vtgaussian_slam_tpu_torch.core import densify as TD
 from vtgaussian_slam_tpu_torch.core import mapping as TMP
 from vtgaussian_slam_tpu_torch.core import p2p as TP2P
 from vtgaussian_slam_tpu_torch.core import pipeline as TP
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
+from vtgaussian_slam_tpu_torch.ops.rasterizer import binning as TB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
 
 frames = P2P.frames
@@ -82,13 +91,41 @@ def _densify_threshold_plus_1pct(mp):
     mp.setattr(TP, "densify_nonpresence", faulty)
 
 
+def _densify_points(mp, move):
+    """densify_from_pixels' camera-frame points passed through `move`."""
+    from_pixels = TP.densify_from_pixels
+
+    def faulty(cam_quat, cam_trans, depth_vals, colors, idx, valid, cam):
+        c = from_pixels(cam_quat, cam_trans, depth_vals, colors, idx, valid,
+                        cam)
+        w2c = geo.pose_to_w2c(geo.normalize(cam_quat), cam_trans)
+        pts_cam = move(geo.transform_points(w2c, c.points), cam)
+        return c._replace(points=geo.transform_points(geo.invert_se3(w2c),
+                                                      pts_cam))
+
+    mp.setattr(TP, "densify_from_pixels", faulty)
+
+
+def _densify_points_scaled(mp):
+    """Densified camera-frame points scaled by a further x1.001 (~4e-3 m
+    at 4 m)."""
+    _densify_points(mp, lambda p, cam: p * 1.001)
+
+
+def _densify_without_pixel_centre_x(mp):
+    """Densified points without the +0.5 pixel centre on the x axis
+    (0.5 / fx of the depth)."""
+    _densify_points(mp, lambda p, cam: torch.stack(
+        [p[:, 0] - 0.5 / cam.fx * p[:, 2], p[:, 1], p[:, 2]], -1))
+
+
 @pytest.fixture(scope="module")
 def jax_slice(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JI, "cv2", None)          # the numpy Canny on both
         cfg = _config(tmp_path_factory.mktemp("controls"))
         jeng, jrun, spread = run_jax_slice(cfg)
-    return cfg, jrun, spread, slice_draws(cfg)
+    return cfg, jrun, spread, slice_draws(cfg), jeng
 
 
 @pytest.mark.parametrize("fault, trips", [
@@ -98,7 +135,7 @@ def jax_slice(tmp_path_factory):
     (_densify_threshold_plus_1pct, "counts"),
 ])
 def test_engine_fault_fails_the_parity_check(jax_slice, fault, trips):
-    cfg, (j_n, _, j_end), spread, draws = jax_slice
+    cfg, (j_n, _, j_end), spread, draws, _ = jax_slice
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JI, "cv2", None)
         fault(mp)
@@ -113,6 +150,50 @@ def test_engine_fault_fails_the_parity_check(jax_slice, fault, trips):
         except AssertionError:
             tripped = "fields"
     assert tripped == trips, (fault.__doc__, t_n, j_n)
+
+
+@pytest.mark.parametrize("fault", [_densify_points_scaled,
+                                   _densify_without_pixel_centre_x])
+def test_densify_fault_fails_the_means_check(jax_slice, fault):
+    """Neither fault is a rigid motion of the camera, so holding each mean
+    at the pose it was built from cannot absorb it. Both also change frame
+    2's count (5245 against 5240, measured), which the count check
+    catches; the means check is held on the rows of frames 0 and 1, which
+    both runs share."""
+    cfg, (j_n, _, _), _, draws, jeng = jax_slice
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JI, "cv2", None)
+        fault(mp)
+        teng, (t_n, _, _) = run_port_slice(cfg, draws)
+    assert t_n[:2] == j_n[:2], (fault.__doc__, t_n, j_n)
+    with pytest.raises(AssertionError, match="means at their own poses"
+                       ) as err:
+        assert_means_at_own_poses(teng.sections[0], jeng.sections[0],
+                                  teng.traj, jeng.traj, j_n[1])
+    print(fault.__name__, [line.strip() for line in str(err.value).splitlines()
+                           if "Mismatched" in line or "Max abs" in line])
+
+
+def _keep_last_pairs_by_depth(mp):
+    """Each tile's depth-ordered window keeps the last mpt pairs by depth
+    instead of the first (the prefix)."""
+    windows = TB._windows
+
+    def faulty(ps, tids, mpt, select):
+        if select == "depth":
+            ps = dict(ps, start=torch.maximum(ps["start"], ps["end"] - mpt))
+        return windows(ps, tids, mpt, select)
+
+    mp.setattr(TB, "_windows", faulty)
+
+
+def test_prefix_cut_fault_fails_the_truncation_check(tmp_path):
+    """test_torch_truncation_parity's check on the binned route alone (its
+    W6: the eval_mode budget minus the training budget)."""
+    jax_s, port_s, nudged, _ = TR.run_routes(tmp_path, ("binned",),
+                                             _keep_last_pairs_by_depth)
+    with pytest.raises(AssertionError, match="W6 binned"):
+        TR.assert_port_shares(jax_s, port_s, nudged)
 
 
 def _round_not_floor(mp):

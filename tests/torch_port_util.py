@@ -340,6 +340,47 @@ def assert_fields_within_spread(port_sections, jax_sections, runs, lrs,
             assert big <= reach, (i, f, big, reach)
 
 
+def _w2c64(traj) -> np.ndarray:
+    """(T, 4, 4) f64 w2c of a port or JAX trajectory's f32 poses."""
+    from vtgaussian_slam_tpu_torch.ops import geometry as geo
+    q = torch.as_tensor(np_(traj.quats).astype(np.float64))
+    t = torch.as_tensor(np_(traj.trans).astype(np.float64))
+    return np_(geo.pose_to_w2c(geo.normalize(q), t))
+
+
+def assert_means_at_own_poses(t_sec, j_sec, t_traj, j_traj, n) -> None:
+    """The first n means of a port section against the JAX engine's, each
+    held at the pose it was built from. Every Gaussian carries its frame of
+    origin (`vars.timestep`): a densified one is back-projected at that
+    frame's tracked pose, a base-frame section's at the boundary's, frame
+    0's at the identity. The frames of origin must agree exactly; then the
+    port's mean goes through the port's own w2c at that frame and JAX's c2w
+    at the same frame, in f64: m' = c2w_jax[t] . w2c_port[t] . m_port, held
+    against JAX's mean at rtol = atol = 1e-5. The pose gap drops
+    out exactly; the pose checks hold it, once, at their own tolerance.
+
+    Held directly, a densified mean carries the pose gap of its frame
+    through a ~4 m back-projection, about 3x the gap (|dt| + 2 |dq| z).
+    The slice config (3 frames), frame 2, by host (CPU; XLA capped at AVX
+    has no FMA): default, |dq| 1.4e-7, |dt| 6.0e-7, means 1.9e-6 (0.17 of
+    the 1e-5 band); AVX, |dq| 3.3e-6, |dt| 1.3e-5, means 4.1e-5 (4.0 of
+    it), while the pose gap there is 15x inside its own tolerance (2e-4).
+    Prints the largest gap over its tolerance."""
+    ts = np_(t_sec.vars.timestep)[:n]
+    np.testing.assert_array_equal(ts, np_(j_sec.vars.timestep)[:n],
+                                  err_msg="frames of origin")
+    frame = ts.astype(np.int64)
+    to_jax = np.linalg.inv(_w2c64(j_traj))[frame] @ _w2c64(t_traj)[frame]
+    m = np_(t_sec.params.means3d)[:n].astype(np.float64)
+    got = np.einsum("nij,nj->ni", to_jax[:, :3, :3], m) + to_jax[:, :3, 3]
+    ref = np_(j_sec.params.means3d)[:n].astype(np.float64)
+    tol = 1e-5
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol,
+                               err_msg="means at their own poses")
+    ratio = (np.abs(got - ref) / (tol + tol * np.abs(ref))).max(initial=0.0)
+    print(f"means at their own poses: largest gap / tolerance {ratio:.3f}")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def first_exp_spent():
     """In a process that also imports JAX, the first multi-threaded

@@ -138,7 +138,7 @@ def _join_group(rank: int, world: int, device):
 def _run(args, config, device, rank: int) -> int:
     from .core.config import prepare_config
     from .eval.evaluate import eval_backend_kwargs, eval_sequence
-    from .utils.common import seed_everything
+    from .utils.common import save_params, seed_everything
 
     seed_everything(seed=config["seed"])
     results_dir = os.path.join(config["workdir"], config["run_name"])
@@ -226,8 +226,7 @@ def _run(args, config, device, rank: int) -> int:
               f"{stats['section_page_ins']} in")
 
         params_ls = engine.export_params_ls()
-        np.save(os.path.join(results_dir, "params_ls.npy"),
-                np.array(params_ls, dtype=object), allow_pickle=True)
+        save_params(params_ls, results_dir)
         # evaluate at the budget the map was trained with: a smaller one
         # truncates trained blend depth and under-reports quality
         eval_sequence(engine.dataset, params_ls, n, eval_dir,

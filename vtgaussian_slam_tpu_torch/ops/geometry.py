@@ -99,6 +99,11 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
+def relative_transformation(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """T1^-1 @ T2: the pose of frame 2 relative to frame 1 ((..., 4, 4))."""
+    return invert_se3(T1) @ T2
+
+
 def backproject(depth: torch.Tensor, intrinsics: torch.Tensor,
                 c2w: torch.Tensor | None = None, depth_factor: float = 1.005,
                 pixel_center: float = 0.5) -> torch.Tensor:

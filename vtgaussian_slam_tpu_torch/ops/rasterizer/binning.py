@@ -9,7 +9,8 @@ on the same projected inputs.
 
 `with_inverse=True` also records, for every (gaussian, slot) pair, the flat
 table position it landed in (or -1): the transpose of the table gather is
-then a gather (`apply_slot_inverse`) instead of a scatter-add.
+then a gather (`apply_slot_inverse`; `table_gather`'s backward) instead
+of a scatter-add.
 
 `bin_two_class` windows the same sort twice: the k_dense highest-count
 tiles keep the full pair budget, the rest a smaller one, each class a
@@ -282,6 +283,35 @@ def bin_two_class(proj: ProjectedGaussians, tile: int, span_cap: int,
     return BinnedPairs2C(tab_d=tab_d, counts_d=counts_d, tids_d=tids_d,
                          tab_s=tab_s, counts_s=counts_s, tids_s=tids_s,
                          merge=merge, inv_pos=inv_pos)
+
+
+class _TableGather(torch.autograd.Function):
+    """`vals[tab]` whose backward is the dense inverse-map gather: each
+    Gaussian sums the cotangent rows of its s2 slots, a -1 pad reading an
+    appended zero row. No scatter-add, no atomics."""
+
+    @staticmethod
+    def forward(ctx, vals, tab, inv_pos):
+        ctx.save_for_backward(inv_pos)
+        return vals[tab]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_pos, = ctx.saved_tensors
+        C = g.shape[-1]
+        flat = torch.cat([g.reshape(-1, C), g.new_zeros((1, C))])
+        idx = torch.where(inv_pos >= 0, inv_pos, flat.shape[0] - 1).long()
+        return flat[idx].sum(1), None, None
+
+
+def table_gather(vals: torch.Tensor, tab: torch.Tensor,
+                 inv_pos: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-slot gather `vals[tab]` ((N, C) values, an
+    (n_tiles, mpt) table, the (N, s2) inverse map of `bin_gaussians(...,
+    with_inverse=True)`). Slots past a tile's count hold clamped indices no
+    inverse entry names: their cotangents must be zero (the renderers mask
+    by count), and then the backward is the gather's exact transpose."""
+    return _TableGather.apply(vals, tab, inv_pos)
 
 
 def gather_channels(vals: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""Seeding, device selection and the emergency params dump.
+"""Seeding, device selection and persistence of params.
 
-Parity: `vtgaussian_slam_tpu/utils/common.py` (seed_everything). The port
-keeps explicit `torch.Generator`s for every random draw; the global seeds
-here only cover host-side numpy/python choices.
+Parity: `vtgaussian_slam_tpu/utils/common.py` (seed_everything,
+save_params, save_params_ckpt). The port keeps explicit `torch.Generator`s
+for every random draw; the global seeds here only cover host-side
+numpy/python choices.
 """
 from __future__ import annotations
 
@@ -30,6 +31,16 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
     return dev
+
+
+def save_params(output_params_ls: list, output_dir: str,
+                name: str = "params_ls.npy") -> str:
+    """Save the list of per-section params dicts (reference format: one
+    object array, loaded back with `np.load(..., allow_pickle=True)`)."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, name)
+    np.save(path, np.array(output_params_ls, dtype=object), allow_pickle=True)
+    return path
 
 
 def save_params_ckpt(params: dict, output_dir: str, time_idx: int) -> str:
