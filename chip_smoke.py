@@ -20,14 +20,45 @@ Phases (any failure raises and the exit code is non-zero):
      inverse map and autograd); the slice's 5 frames at the same
      iteration budgets, printed beside the slice's times for the same
      frames, under the same guards, with its own zeroed launch counts, so
-     that the two routes' per-frame PSNR compare like for like;
+     that the two routes' per-frame PSNR compare like for like. Phases 2
+     and 2b (and every run through `run_frames`) print per frame the
+     densify count (`num_gs_per_frame_ls`), PSNR and depth L1 at
+     `eval_pair_budget`'s budget and at the training budget, and the share
+     of tiles at the pair budget of a binning at the committed pose with
+     the pairs per tile (mean, p99, max): on the generic route under its
+     own name, "generic tiles at the pair budget", since neither package
+     records it there;
+  2b-w2. why the generic route scores below the default route (ROADMAP
+     W2), each variant a fresh engine through `run_frames`:
+     1. the generic route on frames 0-1, and again on frames one ulp up
+        (depth and colour, as the CPU parity tests nudge them): the
+        per-frame |dPSNR| and the frame-1 densify |d| are the card's
+        rounding spread for the route;
+     2. the same two frames with K4 / K5 swapped for their plain PyTorch
+        versions inside this script (`plain_blend`, training only; the
+        evaluation renders launch K4): D1, a kernel is at fault when plain
+        minus kernels exceeds max(3 x spread, 0.5 dB) on a frame or the
+        frame-1 densify counts part by more than 3 x their spread;
+     3. the default route with `tpu.importance_binning` off (the depth
+        prefix) on phase 2's frames: D2, the cut explains the gap when it
+        lands within max(3 x the largest spread, 0.5 dB) of phase 2b;
+     4. both routes at the smallest power of two above variant 3's largest
+        pair count per tile (`auto_pair_budget` off: no tile truncates, so
+        the probe reads 0 and the closed loop holds), each also on frames
+        one ulp up: D3, nothing but the cut separates the routes when their
+        gap lies within max(3 x the larger route's spread there, 0.5 dB) on
+        every frame; then frames 0-2 with the routes' halves swapped
+        (generic tracking with binned mapping, cached tracking with generic
+        mapping), which half carries what remains;
   2c. section boundaries on the default routes: the same proxy with
      baseframe_every 3 for 10 frames (60 tracking iterations, 80 on the
      first section, 100 mapping iterations, the pair budget's closed loop
      on): boundaries at frames 3, 6 and 9 select the overlapping sections,
      track with the point-to-plane candidate metric and spawn sections 1-3;
      later frames map with the global term over two frozen sections, and
-     sections outside the hot set are paged to pinned host memory. Per
+     sections outside the hot set are paged to pinned host memory; after
+     the run the truncation probe's harm on the last section and (W5) on
+     the global binning at g_mpt and 4 g_mpt. Per
      frame: the section tracked against, track / spawn / densify / map
      seconds, the frame's section's n_active, mpt and the global binning's
      g_mpt, at boundaries the selection and the boundary timers, every
@@ -164,6 +195,7 @@ either it prints the reason and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -235,6 +267,13 @@ FLOPS_WALKED = {"K1": 16, "K2": 16, "K3": 16, "K4": 16, "K5": 16, "K6": 16}
 FLOPS_BLENDED = {"K1": 15, "K2": 39, "K3": 40, "K4": 20, "K5": 60, "K6": 47}
 FLOPS_SLOT = {"K1": 72, "K2": 190, "K3": 107, "K4": 0, "K5": 9, "K6": 180}
 MAX_SCALED_ERR = 2e-2   # see check_close
+# phase 2b-w2: frames of variants 1 and 2 and of variant 4's mixed routes,
+# the PSNR floor of its decisions' yardstick max(3 x spread, floor), and the
+# largest pair count per tile counted (variant 4's budget at most)
+W2_SPREAD_FRAMES = 2
+W2_MIXED_FRAMES = 3     # variant 4's routes with their halves swapped
+W2_FLOOR_DB = 0.5
+COUNT_CAP = 32768
 
 
 def card_line() -> str:
@@ -268,44 +307,303 @@ def generic_route_config():
     return config
 
 
-def run_frames(engine, n, wrappers, valid0, tag):
-    """Drive `engine.process_frame` for frames 0..n-1 with every kernel
-    count zeroed just before and read just after; print the per-frame
-    split, quality and the guards, and return (launches, per-frame times)."""
+def train_quality(engine, t):
+    """(PSNR dB, depth L1 m) of frame t as `evaluate_frame` scores it, but
+    rendered at the training budget (`engine.backend_kwargs`) instead of
+    `eval_pair_budget`'s."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.losses import render_slam
+    from vtgaussian_slam_tpu_torch.eval.evaluate import frame_metrics
+    color_np, depth_np, _, _ = engine.dataset[t]
+    sec = engine._resident(t // engine.bfe)
+    with torch.no_grad():
+        r = render_slam(sec.params, sec.active_mask(), engine.traj.quats[t],
+                        engine.traj.trans[t], engine.cam,
+                        engine.backend_kwargs)
+    m = frame_metrics(r, color_np, depth_np, with_ssim=False)
+    return m["psnr"], m["l1"]
+
+
+def budget_counts(engine, t, mpt):
+    """Frame t's section binned at frame t's committed pose
+    (`binning.bin_gaussians`): the share of image tiles whose pair count
+    reaches `mpt` under each select (they keep different pairs of a full
+    tile, never a different count: asserted), and the mean, 99th
+    percentile and maximum of the pairs per tile, counted up to COUNT_CAP. Neither package records the share on the
+    generic route: the engines measure it only on their caches."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.track_cache import project_at
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import bin_gaussians
+    sec = engine._resident(t // engine.bfe)
+    cam = engine.cam
+    tx, ty = -(-cam.width // 16), -(-cam.height // 16)
+    span = engine.backend_kwargs["span_cap"]
+    proj = project_at(sec.params, sec.active_mask(), engine.traj.quats[t],
+                      engine.traj.trans[t], cam)
+    share = {sel: float((bin_gaussians(proj, 16, span, tx, ty, mpt,
+                                       select=sel).counts >= mpt)
+                        .double().mean())
+             for sel in ("importance", "depth")}
+    assert share["importance"] == share["depth"], share
+    raw = bin_gaussians(proj, 16, span, tx, ty, COUNT_CAP).counts.double()
+    return dict(share=share["depth"], mean=float(raw.mean()),
+                p99=float(torch.quantile(raw, 0.99)), max=int(raw.max()))
+
+
+def run_frames(engine, n, wrappers, valid0, tag, train=contextlib.nullcontext):
+    """Drive `engine.process_frame` for frames 0..n-1, each inside the
+    context `train()` makes, with every kernel count zeroed just before and
+    read just after; print the per-frame split, the densify count, the
+    quality at `eval_pair_budget`'s and at the training budget, the
+    share of tiles at the pair budget at the committed pose and the guards.
+    Returns (launches, per-frame times, quality: per-frame lists under
+    psnr, l1, psnr_train, l1_train, densified, share, mean, p99, max, mpt,
+    and the ATE under ate)."""
     import numpy as np
     import torch
+    from vtgaussian_slam_tpu_torch.eval.evaluate import eval_pair_budget
     zeroed(wrappers)
     rows = []
     t_run = time.time()
+    count_s = 0.0
     for t in range(n):
-        engine.process_frame(t)
+        with train():
+            engine.process_frame(t)
+        mpt = engine.map_backend_kwargs["max_pairs_per_tile"]
+        t0 = time.time()
+        counts = budget_counts(engine, t, mpt)
+        count_s += time.time() - t0
         rows.append((t, engine.frame_times[t], engine.sections[0].n_active,
-                     engine.map_backend_kwargs["max_pairs_per_tile"]))
+                     mpt, counts))
     torch.cuda.synchronize()
-    run_s = time.time() - t_run
+    run_s = time.time() - t_run - count_s
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"[{tag}] {n} frames in {run_s:.2f} s; launches {launches}")
-    psnrs, l1s = [], []
-    for t, ft, n_act, mpt in rows:
+    print(f"[{tag}] {n} frames in {run_s:.2f} s (the tile counts' "
+          f"{count_s:.2f} s apart); launches {launches}")
+    # the initial count, then one densify per frame (one section)
+    dens = engine.num_gs_per_frame_ls
+    q = {k: [] for k in ("psnr", "l1", "psnr_train", "l1_train", "densified",
+                         "share", "mean", "p99", "max", "mpt")}
+    for t, ft, n_act, mpt, c in rows:
         psnr, l1 = engine.evaluate_frame(t)
-        psnrs.append(psnr)
-        l1s.append(l1)
+        psnr_tr, l1_tr = train_quality(engine, t)
+        e_mpt = eval_pair_budget(engine.sections[0].n_active, engine.cam.height,
+                                 engine.cam.width, engine.config["tpu"])[
+                                     "max_pairs_per_tile"]
+        for k, v in (("psnr", psnr), ("l1", l1), ("psnr_train", psnr_tr),
+                     ("l1_train", l1_tr), ("densified", dens[t]),
+                     ("share", c["share"]), ("mean", c["mean"]),
+                     ("p99", c["p99"]),
+                     ("max", c["max"]), ("mpt", mpt)):
+            q[k].append(v)
         print(f"[{tag} frame {t}] track {ft['track']:.3f} s densify "
               f"{ft['densify']:.3f} s map {ft['map']:.3f} s ({stage(ft)}) | "
-              f"n_active {n_act} | mpt {mpt} | PSNR {psnr:.2f} dB | depth L1 "
-              f"{l1 * 100:.3f} cm")
-    ate = engine.ate(n)
+              f"n_active {n_act} ({'initial' if t == 0 else 'densified'} "
+              f"{dens[t]}) | mpt {mpt} | PSNR {psnr:.2f} dB, depth L1 "
+              f"{l1 * 100:.3f} cm at the eval budget (mpt {e_mpt}); "
+              f"{psnr_tr:.2f} dB, {l1_tr * 100:.3f} cm at the training "
+              f"budget | tiles at the pair budget {c['share']:.4f} (both "
+              f"selects), pairs per tile mean {c['mean']:.0f} p99 "
+              f"{c['p99']:.0f} max {c['max']}")
+    ate = q["ate"] = engine.ate(n)
+    share = (f"tracking tiles at the pair budget, max share "
+             f"{engine.stats['tile_truncation_frac_max']:.4f}"
+             if engine.track_cached else
+             f"generic tiles at the pair budget, max share "
+             f"{max(q['share']):.4f} (chip_smoke's binning at each frame's "
+             f"committed pose)")
     print(f"[{tag}] ATE {ate * 100:.4f} cm (bound < 5 cm); min PSNR "
-          f"{min(psnrs):.2f} dB (bound > 20 dB); n_active "
-          f"{engine.sections[0].n_active} (bound >= {valid0}); tracking "
-          f"tiles at the pair budget, max share "
-          f"{engine.stats['tile_truncation_frac_max']:.4f}")
-    vals = psnrs + l1s + [ate]
+          f"{min(q['psnr']):.2f} dB (bound > 20 dB); n_active "
+          f"{engine.sections[0].n_active} (bound >= {valid0}); {share}")
+    vals = q["psnr"] + q["l1"] + q["psnr_train"] + q["l1_train"] + [ate]
     assert all(np.isfinite(v) for v in vals), vals
     assert engine.sections[0].n_active >= valid0
     assert ate < 0.05, ate
-    assert min(psnrs) > 20.0, psnrs
-    return launches, [ft for _, ft, _, _ in rows]
+    assert min(q["psnr"]) > 20.0, q["psnr"]
+    return launches, [ft for _, ft, _, _, _ in rows], q
+
+
+@contextlib.contextmanager
+def one_ulp_frames():
+    """Every frame the port's synthetic dataset returns, one ulp up: depth
+    where valid, and colour (the "both" nudge of the CPU parity tests'
+    `one_ulp_frames`); restored on exit."""
+    import numpy as np
+    from vtgaussian_slam_tpu_torch.datasets.synthetic import \
+        SyntheticRoomDataset
+    get = SyntheticRoomDataset.__getitem__
+
+    def nudged(self, index):
+        c, d, K, pose = get(self, index)
+        d = np.where(d > 0, np.nextafter(d, np.float32(np.inf)),
+                     d).astype(d.dtype)
+        c = np.nextafter(c, np.float32(np.inf)).astype(c.dtype)
+        return c, d, K, pose
+
+    SyntheticRoomDataset.__getitem__ = nudged
+    try:
+        yield
+    finally:
+        SyntheticRoomDataset.__getitem__ = get
+
+
+@contextlib.contextmanager
+def plain_blend():
+    """The tiled renderer's K4 and K5 (`tiled.BlendGather`'s forward and
+    backward and the render without gradient) replaced by their plain
+    PyTorch versions on the card, 64 tiles at a time; the wrappers are
+    restored on exit. Phase 2b-w2's variant 2 alone runs inside it: the
+    package launches K4 / K5 on every CUDA tensor."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import tiled
+    fwd, bwd = tiled.blend_forward, tiled.blend_backward
+
+    def forward(recs, counts, tiles_x, n_channels=8):
+        return torch.cat([cb.blend_forward_plain(
+            recs[b], counts[b], tiles_x, n_channels, b)
+            for b in batched(recs.shape[0], 64)])
+
+    def backward(recs, counts, out, g, tiles_x):
+        return torch.cat([cb.blend_backward_plain(
+            recs[b], counts[b], out[b], g[b], tiles_x, b)
+            for b in batched(recs.shape[0], 64)])
+
+    tiled.blend_forward, tiled.blend_backward = forward, backward
+    try:
+        yield
+    finally:
+        tiled.blend_forward, tiled.blend_backward = fwd, bwd
+
+
+def w2_run(config, n, wrappers, valid0, tag, train=contextlib.nullcontext):
+    """One phase 2b-w2 variant: a fresh engine on `config` for n frames
+    (`run_frames`); the engine is freed. Returns (launches, quality)."""
+    import torch
+    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    eng = VTGaussianSLAM(config, device="cuda")
+    launches, _, q = run_frames(eng, n, wrappers, valid0, tag, train)
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return launches, q
+
+
+def w2_phase(wrappers, valid0, q_default, q_generic):
+    """Phase 2b-w2: why the generic route scores below the default route
+    (ROADMAP W2). q_default / q_generic: phase 2's and phase 2b's per-frame
+    quality on the same frames. Prints each variant per frame and the
+    decisions D1-D3; returns the launches of every variant, summed."""
+    import numpy as np
+    yard = lambda spread: max(3.0 * spread, W2_FLOOR_DB)
+    fmt = lambda xs, nd=2: " / ".join(f"{x:.{nd}f}" for x in xs)
+
+    def config_of(generic, **tpu):
+        c = generic_route_config() if generic else room0_proxy_config()
+        c["tracking"]["base1_num_iters"] = TRACK_ITERS
+        c["mapping"]["num_iters"] = MAP_ITERS
+        c["tpu"].update(tpu)
+        return c
+
+    runs = []
+    # variant 1: the card's rounding spread on the generic route
+    l, ref = w2_run(config_of(True), W2_SPREAD_FRAMES, wrappers, valid0,
+                    "w2 v1 generic")
+    runs.append(l)
+    with one_ulp_frames():
+        l, ulp = w2_run(config_of(True), W2_SPREAD_FRAMES, wrappers, valid0,
+                        "w2 v1 generic, frames one ulp up")
+    runs.append(l)
+    spread = [abs(a - b) for a, b in zip(ulp["psnr"], ref["psnr"])]
+    spread_tr = [abs(a - b) for a, b in zip(ulp["psnr_train"],
+                                            ref["psnr_train"])]
+    d_spread = abs(ulp["densified"][1] - ref["densified"][1])
+    print(f"[2b-w2 v1] one-ulp spread of the generic route (K4 + K5), "
+          f"frames 0-{W2_SPREAD_FRAMES - 1}: |dPSNR| "
+          f"{fmt(spread)} dB at the eval budget, {fmt(spread_tr)} dB at the "
+          f"training budget; frame-1 densify {ref['densified'][1]} against "
+          f"{ulp['densified'][1]} (|d| {d_spread})")
+
+    # variant 2: the same route with K4 / K5 swapped for the plain versions
+    l, plain = w2_run(config_of(True), W2_SPREAD_FRAMES, wrappers, valid0,
+                      "w2 v2 generic, plain K4 / K5 (training only)",
+                      train=plain_blend)
+    runs.append(l)
+    assert l["K4"] == l["K5"] == 0, l     # the frames ran the plain versions
+    gap = [p - r for p, r in zip(plain["psnr"], ref["psnr"])]
+    gap_tr = [p - r for p, r in zip(plain["psnr_train"], ref["psnr_train"])]
+    d_gap = abs(plain["densified"][1] - ref["densified"][1])
+    d1 = (any(abs(g) > yard(s) for g, s in zip(gap, spread))
+          or d_gap > 3 * d_spread)
+    print(f"[2b-w2 v2] plain: PSNR {fmt(plain['psnr'])} dB (kernels "
+          f"{fmt(ref['psnr'])}); plain - kernels {fmt(gap)} dB at the eval "
+          f"budget (limits {fmt(yard(x) for x in spread)}), {fmt(gap_tr)} "
+          f"dB at the training budget; frame-1 densify {plain['densified'][1]}"
+          f" against {ref['densified'][1]} (|d| {d_gap}, limit "
+          f"{3 * d_spread}) -> D1: a kernel is at fault: {d1}")
+
+    # variant 3: the default route on the generic route's cut
+    l, depth = w2_run(config_of(False, importance_binning=False), NUM_FRAMES,
+                      wrappers, valid0, "w2 v3 default, depth prefix")
+    runs.append(l)
+    lim = yard(max(spread))
+    to_generic = [a - b for a, b in zip(depth["psnr"], q_generic["psnr"])]
+    d2 = all(abs(x) <= lim for x in to_generic)
+    print(f"[2b-w2 v3] PSNR per frame at the eval budget: default "
+          f"(importance) {fmt(q_default['psnr'])}; default (depth prefix) "
+          f"{fmt(depth['psnr'])}; generic {fmt(q_generic['psnr'])} dB; "
+          f"densified {q_default['densified'][1:]} / {depth['densified'][1:]}"
+          f" / {q_generic['densified'][1:]}; tiles at the pair budget "
+          f"{fmt(depth['share'], 4)}; depth prefix - generic {fmt(to_generic)} "
+          f"dB (limit {lim:.2f}) -> D2: the cut explains the gap: {d2}")
+
+    # variant 4: both routes at a budget that truncates no tile, each
+    # route's spread there, and the two halves of each route swapped
+    top = max(depth["max"])
+    cover = 512
+    while cover <= top and cover < COUNT_CAP:
+        cover *= 2
+    print(f"[2b-w2 v4] variant 3's pairs per tile: p99 "
+          f"{fmt(depth['p99'], 0)}, max {depth['max']} -> covering budget "
+          f"mpt {cover} (auto_pair_budget off: at a budget no tile reaches, "
+          f"the probe reads 0 and the closed loop holds)")
+    q4, ulp4 = {}, {}
+    for name, track_cache, map_binned in (
+            ("default", True, True), ("generic", False, False),
+            ("generic tracking, binned mapping", False, True),
+            ("cached tracking, generic mapping", True, False)):
+        cfg = config_of(False, max_pairs_per_tile=cover,
+                        auto_pair_budget=False, track_cache=track_cache,
+                        map_binned=map_binned)
+        mixed = track_cache != map_binned
+        l, q4[name] = w2_run(cfg, W2_MIXED_FRAMES if mixed else NUM_FRAMES,
+                             wrappers, valid0, f"w2 v4 {name}, mpt {cover}")
+        runs.append(l)
+        if name in ("default", "generic"):
+            with one_ulp_frames():
+                l, ulp4[name] = w2_run(
+                    cfg, NUM_FRAMES, wrappers, valid0,
+                    f"w2 v4 {name}, mpt {cover}, frames one ulp up")
+            runs.append(l)
+    spread4 = [max(abs(ulp4[r]["psnr"][t] - q4[r]["psnr"][t])
+                   for r in ulp4) for t in range(NUM_FRAMES)]
+    lim4 = [yard(x) for x in spread4]
+    gap4 = [a - b for a, b in zip(q4["default"]["psnr"],
+                                  q4["generic"]["psnr"])]
+    d3 = all(abs(x) <= y for x, y in zip(gap4, lim4))
+    for name, q in q4.items():
+        print(f"[2b-w2 v4] mpt {cover}, {name}: PSNR {fmt(q['psnr'])} dB, "
+              f"ATE {q['ate'] * 100:.4f} cm, densified {q['densified'][1:]},"
+              f" tiles at the pair budget {fmt(q['share'], 4)}")
+    print(f"[2b-w2 v4] mpt {cover}: one-ulp spread (the larger of the two "
+          f"routes') {fmt(spread4)} dB; default - generic {fmt(gap4)} dB "
+          f"(limits {fmt(lim4)}; at mpt 512 "
+          f"{fmt(a - b for a, b in zip(q_default['psnr'], q_generic['psnr']))}"
+          f") -> D3: nothing but the cut separates the routes: {d3}")
+    vals = [x for q in (ref, ulp, plain, depth, *q4.values(), *ulp4.values())
+            for x in q["psnr"] + q["psnr_train"]]
+    assert all(np.isfinite(v) for v in vals), vals
+    return {k: sum(r[k] for r in runs) for k in wrappers}
 
 
 def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
@@ -322,6 +620,7 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
     rows, refs, n_probe = [], {}, 0
     bfe = engine.bfe
     t_run = time.time()
+    count_s = 0.0
     for t in range(n):
         engine.process_frame(t)
         engine.maybe_checkpoint(t)
@@ -330,10 +629,13 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
                 refs[i] = [x.clone() for x in
                            section_tensors(engine.sections[i])]
         gc = engine._gcache
+        mpt = engine.map_backend_kwargs["max_pairs_per_tile"]
+        t0 = time.time()
+        counts = budget_counts(engine, t, mpt)
+        count_s += time.time() - t0
         rows.append(dict(
             t=t, ft=engine.frame_times[t], sec=engine.section_ids[t],
-            n=engine.sections[t // bfe].n_active,
-            mpt=engine.map_backend_kwargs["max_pairs_per_tile"],
+            n=engine.sections[t // bfe].n_active, mpt=mpt, counts=counts,
             g_mpt=None if gc is None else gc.tab.shape[1],
             fixed=engine.fixed_section_ids,
             probes=engine.probe_log[n_probe:], boost=engine._mpt_boost,
@@ -343,9 +645,10 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
         n_probe = len(engine.probe_log)
     engine._page_cold_finish()
     torch.cuda.synchronize()
-    run_s = time.time() - t_run
+    run_s = time.time() - t_run - count_s
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"[{tag}] {n} frames in {run_s:.2f} s; launches {launches}")
+    print(f"[{tag}] {n} frames in {run_s:.2f} s (the tile counts' "
+          f"{count_s:.2f} s apart); launches {launches}")
     psnrs, l1s = [], []
     for r in rows:
         psnr, l1 = engine.evaluate_frame(r["t"])
@@ -360,7 +663,10 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
               f"{r['n']} ({stage(ft)}) | mpt {r['mpt']} g_mpt {r['g_mpt']} | "
               f"probes "
               f"{probes}; boost {r['boost']} | PSNR {psnr:.2f} dB | depth L1 "
-              f"{l1 * 100:.3f} cm | host sections {r['paged']}"
+              f"{l1 * 100:.3f} cm | tiles at the pair budget "
+              f"{r['counts']['share']:.4f} at the committed pose (pairs per "
+              f"tile p99 {r['counts']['p99']:.0f} max {r['counts']['max']}) | "
+              f"host sections {r['paged']}"
               + (f" | checkpoint saved in {ft['checkpoint']:.3f} s (outside "
                  f"the split)" if "checkpoint" in ft else ""))
         if r["corr"] is not None:
@@ -373,6 +679,11 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
           f"{len(engine.sections)} sections (want {n_sections}), n_active "
           f"{[s.n_active for s in engine.sections]}")
     print(f"[{tag}] final_stats " + json.dumps(engine.final_stats()))
+    if not engine.track_cached:
+        print(f"[{tag}] generic tiles at the pair budget, max share "
+              f"{max(r['counts']['share'] for r in rows):.4f} (chip_smoke's "
+              f"binning at each frame's committed pose; final_stats' "
+              f"tile_truncation_frac_max reads only the global binning here)")
     vals = psnrs + l1s + [ate]
     assert all(np.isfinite(v) for v in vals), vals
     assert len(engine.sections) == n_sections, len(engine.sections)
@@ -1338,7 +1649,7 @@ def two_class_phase(wrappers, valid0):
     tiles_x = -(-cam.width // 16)
     n_tiles = tiles_x * (-(-cam.height // 16))
     assert eng._k_dense > 0, eng._k_dense
-    launches, _ = run_frames(eng, NUM_FRAMES, wrappers, valid0, tag)
+    launches, _, _ = run_frames(eng, NUM_FRAMES, wrappers, valid0, tag)
     missing = [k for k in ("K1", "K2", "K3", "K4") if launches[k] <= 0]
     assert not missing, f"kernels never launched on the two-class path: {missing}"
     bk = eng.backend_kwargs
@@ -1845,8 +2156,10 @@ def main() -> int:
                                                        loss_from_render,
                                                        slam_records)
     from vtgaussian_slam_tpu_torch.core.map_cache import (accum_to_result,
+                                                          concat_params,
                                                           pack_fields8,
                                                           trunc_probe)
+    from vtgaussian_slam_tpu_torch.models import gaussians as G
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
     from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
     from vtgaussian_slam_tpu_torch.ops import geometry as geo
@@ -1869,8 +2182,8 @@ def main() -> int:
     wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
                 "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
                 "K5": cb.blend_backward, "K6": cs.splat_backward_all}
-    launches1, times1 = run_frames(engine, NUM_FRAMES, wrappers, valid0,
-                                   "slice")
+    launches1, times1, q1 = run_frames(engine, NUM_FRAMES, wrappers, valid0,
+                                       "slice")
     missing = [k for k in ("K1", "K2", "K3", "K4") if launches1[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
 
@@ -1888,10 +2201,15 @@ def main() -> int:
     print("[generic] the slice's route on the same frames: " + "; ".join(
         f"frame {t} track {ft['track']:.3f} s densify {ft['densify']:.3f} s "
         f"map {ft['map']:.3f} s" for t, ft in enumerate(times1[:GENERIC_FRAMES])))
-    launches2, _ = run_frames(engine2, GENERIC_FRAMES, wrappers, valid0,
-                              "generic")
+    launches2, _, q2 = run_frames(engine2, GENERIC_FRAMES, wrappers, valid0,
+                                  "generic")
     missing = [k for k in ("K4", "K5") if launches2[k] <= 0]
     assert not missing, f"kernels never launched on the generic route: {missing}"
+
+    # ---- phase 2b-w2: why the generic route scores lower (W2) ----------
+    t0 = time.time()
+    launches_w2 = w2_phase(wrappers, valid0, q1, q2)
+    print(f"[2b-w2] {time.time() - t0:.1f} s; launches {launches_w2}")
 
     # ---- phase 2c: section boundaries on the default routes -------------
     config3 = room0_proxy_config()
@@ -1933,6 +2251,27 @@ def main() -> int:
     print(f"[boundaries] truncation harm (pixels whose rgb moves > 1/255 "
           f"against 4x the budget) at frame {t_l}'s pose: "
           + ", ".join(f"mpt {m} {h:.5f}" for m, h in harms.items()))
+    # W5: the same probe on the global term's binning, [fixed sections;
+    # the last section] at its base keyframe, at g_mpt and 4 g_mpt
+    gc = engine3._gcache
+    g_mpt = gc.tab.shape[1]
+    fixed, _ = G.concat_sections(
+        [engine3._resident(i) for i in engine3.fixed_section_ids],
+        quantum=engine3.quantum)
+    g_params = concat_params(fixed.params, sec_l.params)
+    g_active = torch.cat([fixed.active_mask(), sec_l.active_mask()])
+    g_harms = {m: float(trunc_probe(
+        g_params, g_active, gc.quat, gc.trans, engine3.cam,
+        span_cap=engine3.backend_kwargs["span_cap"], mpt=m,
+        select=engine3._bin_select)) for m in (g_mpt, 4 * g_mpt)}
+    del fixed, g_params, g_active
+    print(f"[boundaries] W5: truncation harm on the global binning (fixed "
+          f"sections {engine3.fixed_section_ids} and section "
+          f"{len(engine3.sections) - 1}, {int(gc.counts.shape[0])} rows) at "
+          f"its base keyframe's pose: "
+          + ", ".join(f"mpt {m} {h:.5f}" for m, h in g_harms.items())
+          + f" (above 0.01 at g_mpt {g_mpt}: "
+          f"{g_harms[g_mpt] > 0.01})")
 
     # ---- phase 2d: one boundary on the generic route --------------------
     config4 = generic_route_config()
@@ -2019,12 +2358,13 @@ def main() -> int:
     h2 = sharded_phase(wrappers)
     print(f"[2h] {time.time() - t0:.1f} s")
 
-    runs = (launches1, launches2, launches3, launches4, launches_e1,
-            launches_e2, *cli_runs, *f["launches"].values(), g2["launches"],
-            h2["launches"])
+    runs = (launches1, launches2, launches_w2, launches3, launches4,
+            launches_e1, launches_e2, *cli_runs, *f["launches"].values(),
+            g2["launches"], h2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in wrappers}
     print(f"[launches] slice {launches1}; generic route {launches2}; "
-          f"boundaries {launches3}; generic boundary {launches4}; phase 2c "
+          f"phase 2b-w2 {launches_w2}; boundaries {launches3}; generic "
+          f"boundary {launches4}; phase 2c "
           f"eval at the training budget {launches_e1}, at the eval_mode "
           f"budget {launches_e2}; CLI smoke, medium, medium eval_mode x2 "
           f"{cli_runs}; phase 2f {f['launches']}; phase 2g (two-class) "
@@ -2406,6 +2746,7 @@ def main() -> int:
               f"walked, {work['blended']} blended, {work['slots']} slots "
               f"walked) | launches on the engine paths {launches[name]} "
               f"(slice {launches1[name]}, generic route {launches2[name]}, "
+              f"phase 2b-w2 {launches_w2[name]}, "
               f"boundaries {launches3[name]}, generic boundary "
               f"{launches4[name]}, phase 2e evaluations "
               f"{launches_e1[name] + launches_e2[name]}, CLI runs "

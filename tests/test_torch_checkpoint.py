@@ -96,6 +96,17 @@ def test_run_saves_on_the_interval(resumed):
     assert saved == [t for t in range(1, FRAMES) if (t + 1) % interval == 0]
 
 
+def test_resume_keeps_the_densify_counts(resumed):
+    """num_gs_per_frame_ls (each section's initial count, then each
+    densify's additions) survives the checkpoint: the resumed run's list
+    equals the uninterrupted run's, one entry per section and densify."""
+    full, again = resumed["full"], resumed["again"]
+    assert again.num_gs_per_frame_ls == full.num_gs_per_frame_ls
+    assert len(full.num_gs_per_frame_ls) == FRAMES
+    assert sum(full.num_gs_per_frame_ls) >= sum(
+        s.n_active for s in full.sections)
+
+
 def test_latest_and_truncated_fallback(tmp_path, capsys):
     cfg = _smoke(tmp_path, save_checkpoints=True, checkpoint_interval=2)
     TEngine(cfg, device="cpu").run(num_frames=6)
@@ -148,7 +159,8 @@ def _lists(eng):
     return (eng.tracking_corr, eng.mapping_corr, list(eng.baseframes.ids),
             (tuple(eng.fixed_section_ids) if eng.fixed_section_ids
              else None), list(eng.depth_means), eng._mpt_boost,
-            list(eng._harm_hist), eng._frames_tracked)
+            list(eng._harm_hist), eng._frames_tracked,
+            [int(n) for n in eng.num_gs_per_frame_ls])
 
 
 def test_checkpoints_load_across_packages(tmp_path, capsys):

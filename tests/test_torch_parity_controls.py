@@ -11,9 +11,10 @@ test_torch_boundaries.py holds the first fault against that yardstick on
 its four-section run as well.
 
 Depth-prefix truncation (test_torch_truncation_parity's config, binned
-route): a tile window that keeps the wrong pairs at the budget must move
-the port's truncation loss (W6) off the JAX package's by more than that
-test allows.
+route; and its 66-tile case, both routes): a tile window that keeps the
+wrong pairs at the budget must move the port's truncation loss (W6), and
+its route gap (W2) or densify counts, off the JAX package's by more than
+that test allows.
 
 A fault that scales a gradient by a constant (e.g. K3's opacity row x 1.01)
 trips neither: Adam divides each entry's step by its own gradient's RMS,
@@ -194,6 +195,14 @@ def test_prefix_cut_fault_fails_the_truncation_check(tmp_path):
                                              _keep_last_pairs_by_depth)
     with pytest.raises(AssertionError, match="W6 binned"):
         TR.assert_port_shares(jax_s, port_s, nudged)
+
+
+def test_prefix_cut_fault_fails_the_route_gap_check(tmp_path):
+    """test_torch_truncation_parity's 66-tile W2 check (trace_w2_scale's
+    room0 proxy at 96 x 176) with the same wrong window."""
+    jax_s, port_s, nudged = TR.run_scale(tmp_path, _keep_last_pairs_by_depth)
+    with pytest.raises(AssertionError, match="W2 at the eval budget"):
+        TR.assert_scale_shares(jax_s, port_s, nudged)
 
 
 def _round_not_floor(mp):

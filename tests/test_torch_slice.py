@@ -172,6 +172,9 @@ def test_three_frames_match_jax_engine(tmp_path, monkeypatch):
     jeng, jrun, spread = run_jax_slice(cfg)
     teng, trun = run_port_slice(cfg, slice_draws(cfg))
     assert_slice_parity(cfg, jeng, jrun, teng, trun, spread)
+    # the initial count and each densify's additions, integer for integer
+    assert teng.num_gs_per_frame_ls == jeng.num_gs_per_frame_ls
+    assert len(teng.num_gs_per_frame_ls) == FRAMES
     # frame baseframe_every is a section boundary: it spawns section 1
     teng.process_frame(cfg["baseframe_every"])
     assert len(teng.sections) == 2 and teng.sections[1].n_active > 0

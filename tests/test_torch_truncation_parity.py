@@ -27,13 +27,22 @@ of the same quantity over JAX runs on frames one ulp off (the three nudges
 of torch_port_util.jax_spread). The floor lies well below the smallest
 |W2| measured here (0.24 dB at the training budget), so a port whose two
 routes scored alike would fail. test_torch_parity_controls.py holds a
-wrong prefix cut (the last pairs by depth) against this check."""
+wrong prefix cut (the last pairs by depth) against this check.
+
+This proxy has 12 tiles, under the 64 at which `auto_pair_budget` divides
+by 12, and does not show the card's W2 sign at the training budget. The
+66-tile case (tests/trace_w2_scale.py's room0 proxy at 96 x 176, 2
+frames of 4 iterations, mpt 384, every tile cut) does: there JAX's
+generic route scores >= 1 dB below its default route at the eval budget
+on every frame, and the port's share of W2 and of the densify counts is
+held on the same yardsticks (`trace_w2_scale.port_shares`)."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import trace_w2_scale as TW
 from test_torch_slice import FRAMES, _config, slice_draws
 from torch_port_util import NUDGES, one_thread, one_ulp_frames  # noqa: F401
 from vtgaussian_slam_tpu.core import pipeline as JP
@@ -185,3 +194,37 @@ def test_port_truncation_losses_match_jax(runs):
     # the cut bites: the training budget loses several dB on both maps
     for name in ("W6 binned", "W6 generic"):
         assert ref[name].min() > 3.0, (name, ref[name])
+
+
+SCALE = dict(h=96, w=176, frames=2, iters=(4, 4), mpt=384)
+
+
+def run_scale(root, port_fault=None):
+    """trace_w2_scale's 66-tile case: both routes in both packages, the
+    JAX engine also on the three one-ulp nudges."""
+    return TW.routes_at(SCALE["h"], SCALE["w"], SCALE["frames"],
+                        SCALE["iters"], list(NUDGES), SCALE["mpt"], str(root),
+                        port_fault)
+
+
+def assert_scale_shares(jax_s, port_s, nudged) -> None:
+    """Every row of `trace_w2_scale.port_shares` within its tolerance; the
+    failure names each row that is not."""
+    rows = TW.port_shares(jax_s, port_s, nudged)
+    for name, part, tol in rows:
+        print(f"{name}: the port's largest share {part:.4f}, tolerance "
+              f"{tol:.4f}")
+    bad = [name for name, part, tol in rows if part > tol]
+    assert not bad, f"outside the JAX package's spread: {bad}"
+
+
+def test_route_gap_at_66_tiles_matches_jax(tmp_path):
+    jax_s, port_s, nudged = run_scale(tmp_path)
+    gap = TW.w2(jax_s)["eval"]
+    print(f"JAX W2 at the eval budget {np.round(gap, 4)} dB, port "
+          f"{np.round(TW.w2(port_s)['eval'], 4)} dB; tiles at the pair "
+          f"budget {[jax_s[r]['share'] for r in TW.ROUTES]}")
+    # the card's sign: every tile cut, the generic route >= 1 dB below
+    assert gap.min() >= 1.0, gap
+    assert min(min(jax_s[r]["share"]) for r in TW.ROUTES) == 1.0
+    assert_scale_shares(jax_s, port_s, nudged)

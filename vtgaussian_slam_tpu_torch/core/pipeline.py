@@ -283,6 +283,8 @@ class VTGaussianSLAM:
         self.fixed_section_ids: tuple[int, int] | None = None
         self.section_ids: dict[int, int] = {}   # frame -> section tracked on
         self.depth_means: list[float] = []      # far-depth filter statistics
+        # each new section's initial count, then each densify's additions
+        self.num_gs_per_frame_ls: list[int] = []
         self._depth_lru: dict[int, np.ndarray] = {}
         self._gcache = self._gcache_key = None
         self._gcache_age = 0
@@ -481,6 +483,7 @@ class VTGaussianSLAM:
             n_valid=n, capacity=cap, timestep=timestep,
             scene_radius=depth_max / self.config["scene_radius_depth_ratio"])
         self.sections.append(sec)
+        self.num_gs_per_frame_ls.append(n)
 
     def _new_base_section(self, t: int, frame: Frame, color_np):
         """Spawn the view-tied section of boundary frame t at its tracked
@@ -990,6 +993,7 @@ class VTGaussianSLAM:
             sec = G.append_gaussians(sec, c.points, c.colors, c.mean3_sq_dist,
                                      c.keep, float(t))
         self.sections[bf_idx] = sec
+        self.num_gs_per_frame_ls.append(n_new)
         return n_new
 
     # ------------------------------------------------------------------

@@ -103,7 +103,7 @@ def save_checkpoint(engine, time_idx: int) -> str:
         "fixed_section_ids": (list(engine.fixed_section_ids)
                               if engine.fixed_section_ids else None),
         "depth_means": engine.depth_means,
-        "num_gs_per_frame_ls": [],
+        "num_gs_per_frame_ls": list(engine.num_gs_per_frame_ls),
         "stats": stats,
         "frame_color_loss": engine.frame_color_loss,
         "frame_depth_loss": engine.frame_depth_loss,
@@ -202,6 +202,8 @@ def load_checkpoint(engine, path: str | None = None,
     engine.fixed_section_ids = (tuple(meta["fixed_section_ids"])
                                 if meta["fixed_section_ids"] else None)
     engine.depth_means = list(meta["depth_means"])
+    engine.num_gs_per_frame_ls = [int(n) for n in
+                                  meta.get("num_gs_per_frame_ls", [])]
     saved = meta["stats"]
     for k in engine.stats:
         if k in saved:
