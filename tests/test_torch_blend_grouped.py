@@ -6,12 +6,19 @@ each warp's live records of a chunk into a list, and blends the list four
 records at a time with selects. `cuda_blend.blend_forward_grouped` repeats
 that in PyTorch (`ng` records per group, `chunk` records per list):
 
-  (a) against `blend_forward_plain`, within 1e-6 of each channel's largest
-      value (the same f32 products; the plain version's cumprod associates
-      differently), on the record cases of test_torch_walk_boxes.py, on
-      ragged counts (0, off the chunk, off a multiple of the group; up to
-      640 records, past the kernel's 256-record chunks) and on tiles whose
-      pixels stop early;
+  (a) it and `blend_forward_plain` each within the f32 rounding bound of
+      the exact value of the plain walk's alphas and stop decisions
+      (torch_port_util.assert_blend_within_rounding: gamma(2M + 1) of the
+      sum of the exact products' absolute values), on the record cases of
+      test_torch_walk_boxes.py, on ragged counts (0, off the chunk, off a
+      multiple of the group; up to 640 records, past the kernel's
+      256-record chunks) and on tiles whose pixels stop early. They were
+      held to each other within 1e-6 of each channel's largest value,
+      which read 0.66 on MKL's default sgemm path of an AVX-512 host and
+      0.77 under MKL_CBWR=COMPATIBLE or MKL_ENABLE_INSTRUCTIONS=AVX2 (the
+      plain version sums through an einsum); the bound reads <= 0.05 on
+      both, and test_torch_parity_controls.py holds a 1e-4 scale of the
+      grouped output against it;
   (b) a stop that falls inside a group, with a record the pixel would have
       kept after it in the same group, blends neither;
   (c) against the JAX package's interpret-mode `blend_tiles` at rtol 1e-4 /
@@ -24,8 +31,8 @@ import torch
 
 from test_torch_cuda import _hand_records
 from test_torch_walk_boxes import RECORD_CASES
-from torch_port_util import (N_TILES, TILES_X, assert_close_scaled, k5_records,
-                             np_)
+from torch_port_util import (N_TILES, TILES_X, assert_blend_within_rounding,
+                             k5_records, np_)
 from vtgaussian_slam_tpu.ops.rasterizer.pallas_blend import blend_tiles
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
@@ -57,8 +64,9 @@ def test_grouped_blend_matches_plain(name, ng):
     got = CB.blend_forward_grouped(recs, counts, TILES_X, 8, ng=ng,
                                    chunk=CHUNK_OF[ng])
     assert got.shape == ref.shape == (recs.shape[0], 256, 8)
-    for c in range(8):
-        assert_close_scaled(got[..., c], ref[..., c], 1e-6, f"channel {c}")
+    for what, out in (("plain", ref), ("grouped", got)):
+        print(name, ng, what, assert_blend_within_rounding(
+            out, recs, counts, TILES_X, 8, what))
     if name.startswith("ragged"):
         assert int(counts[0]) == 0
         assert any(int(n) % CHUNK_OF[ng] and int(n) % 4 for n in counts)
@@ -90,8 +98,8 @@ def test_grouped_blend_stops_inside_a_group(ng):
     assert bool(inside.any())
     ref = CB.blend_forward_plain(recs, counts, TILES_X, 8)
     got = CB.blend_forward_grouped(recs, counts, TILES_X, 8, ng=ng)
-    for c in range(8):
-        assert_close_scaled(got[..., c], ref[..., c], 1e-6, f"channel {c}")
+    for what, out in (("plain", ref), ("grouped", got)):
+        assert_blend_within_rounding(out, recs, counts, TILES_X, 8, what)
 
 
 @pytest.mark.parametrize("C", [8, 5])

@@ -26,16 +26,39 @@ Point-to-plane metric (test_torch_p2p's frames): a fault in the port's
 association or its normals reaches the port's f64 yardstick too, so it
 must break the pair set JAX keeps or JAX's rounding bound around it
 (test_torch_p2p.check_metric). A sign flip of some normals is no control:
-every method squares or takes |n . dp|."""
+every method squares or takes |n . dp|. A fault in the metric's reduction
+(residuals scaled by 1 + 1e-3 after they are selected) passes the pair and
+residual checks and must trip a metric check on every MKL sgemm path: the
+port's own against its f64 value where the fault is on f32 inputs alone,
+the JAX side's where it moves the f64 yardstick too.
+
+ScanNet++ route (test_torch_scannetpp's run): a wrong odometer init must
+move the port's tracking-loss histories outside the JAX engine's one-ulp
+spread (test_torch_scannetpp.assert_histories_within_spread).
+
+Splat and blend forwards held to the exact value of the plain walk
+(torch_port_util.assert_splat_within_rounding /
+assert_blend_within_rounding: the grouped rehearsals of K1 and K4, and
+test_torch_two_class's single-class rows): a 1e-4 scale of the grouped
+outputs, and of the weights of a walk wider than the sparse budget, must
+fail them."""
 import pytest
 import torch
 
 import test_torch_p2p as P2P
+import test_torch_scannetpp as SNPP
+import test_torch_two_class as TWO
+import test_torch_walk_boxes as WB
 import test_torch_truncation_parity as TR
+from test_torch_boundaries import _port_run
 from test_torch_slice import (FRAMES, ITERS, _config, run_jax_slice,
                               run_port_slice, slice_draws)
-from torch_port_util import (assert_fields_within_spread,  # noqa: F401
-                             assert_means_at_own_poses, one_thread)
+from torch_port_util import (assert_blend_within_rounding,  # noqa: F401
+                             assert_fields_within_spread,
+                             assert_means_at_own_poses,
+                             assert_splat_within_rounding, k5_records,
+                             on_mkl_path, one_thread)
+from test_torch_scannetpp import runs, spread  # noqa: F401
 from vtgaussian_slam_tpu.ops import image as JI
 from vtgaussian_slam_tpu_torch.core import densify as TD
 from vtgaussian_slam_tpu_torch.core import mapping as TMP
@@ -43,6 +66,7 @@ from vtgaussian_slam_tpu_torch.core import p2p as TP2P
 from vtgaussian_slam_tpu_torch.core import pipeline as TP
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
 from vtgaussian_slam_tpu_torch.ops.rasterizer import binning as TB
+from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
 
 frames = P2P.frames
@@ -241,3 +265,145 @@ def test_p2p_fault_fails_the_parity_check(frames, fault, method):
         fault(mp)
         with pytest.raises(AssertionError):
             P2P.check_metric(frames, method, 1)
+
+
+def _p2p_reduction_scaled(mp, precision):
+    """The port's metric reduced from its residuals scaled by 1 + 1e-3
+    after the pairs' residuals are selected (the sum of squares x (1 +
+    1e-3)^2, the max and the top-100 mean x (1 + 1e-3)): on f32 inputs
+    alone ("f32"), or at every precision ("every")."""
+    metric = TP2P.point2plane_metric
+
+    def faulty(target, src_depth, *args, method="sum", **kw):
+        m = metric(target, src_depth, *args, method=method, **kw)
+        if precision == "f32" and src_depth.dtype != torch.float32:
+            return m
+        return m * (1 + 1e-3) ** (2 if method == "sum" else 1)
+
+    mp.setattr(TP2P, "point2plane_metric", faulty)
+
+
+# which of test_torch_p2p.check_metric's checks each precision must trip
+P2P_TRIPS = {"f32": "port metric", "every": "jax metric"}
+
+
+def p2p_fault_trips() -> dict:
+    """{"<precision> <method>": the first line of check_metric's assertion
+    message at seed 0 under _p2p_reduction_scaled, or None if it passed}."""
+    frames = P2P.load_frames()
+    out = {}
+    for precision in P2P_TRIPS:
+        for method in P2P.METHODS:
+            with pytest.MonkeyPatch.context() as mp:
+                _p2p_reduction_scaled(mp, precision)
+                try:
+                    P2P.check_metric(frames, method, 0)
+                    out[f"{precision} {method}"] = None
+                except AssertionError as err:
+                    out[f"{precision} {method}"] = str(err).splitlines()[0]
+    return out
+
+
+@pytest.mark.parametrize("path", ["default", "compatible", "avx2"])
+def test_p2p_reduction_fault_fails_the_metric_check(path):
+    """On the host's default MKL path in process, on the others in a child
+    process (torch_port_util.on_mkl_path). -rP prints each message."""
+    if path == "default":
+        trips = p2p_fault_trips()
+    elif not torch.backends.mkl.is_available():
+        pytest.skip("torch without MKL: no MKL sgemm path to pick")
+    else:
+        trips = on_mkl_path(path, "test_torch_parity_controls",
+                            "p2p_fault_trips")
+    for key, msg in trips.items():
+        print(f"{path} {key}: {msg}")
+    for precision, want in P2P_TRIPS.items():
+        for method in P2P.METHODS:
+            msg = trips[f"{precision} {method}"]
+            assert msg is not None and msg.startswith(want), (
+                path, precision, method, msg)
+
+
+def _odometer_inverted(self, t, rel_c2w):
+    """The odometer's relative pose applied inverted: c2w_{t-1} . rel^-1."""
+    rel = torch.as_tensor(rel_c2w, dtype=torch.float32)
+    c2w = geo.invert_se3(self._traj_w2c(t - 1)) @ geo.invert_se3(rel)
+    w2c = geo.invert_se3(c2w)
+    return geo.rotmat_to_quat(w2c[:3, :3]), w2c[:3, 3]
+
+
+def _odometer_composed_on_the_left(self, t, rel_c2w):
+    """The odometer's relative pose composed on the wrong side:
+    rel . c2w_{t-1} for c2w_{t-1} . rel."""
+    rel = torch.as_tensor(rel_c2w, dtype=torch.float32)
+    c2w = rel @ geo.invert_se3(self._traj_w2c(t - 1))
+    w2c = geo.invert_se3(c2w)
+    return geo.rotmat_to_quat(w2c[:3, :3]), w2c[:3, 3]
+
+
+@pytest.mark.parametrize("fault", [_odometer_inverted,
+                                   _odometer_composed_on_the_left])
+def test_odometer_fault_fails_the_history_check(  # noqa: F811
+        runs, spread, fault):
+    """Both keep the rescue decisions, iteration counts and Gaussian counts
+    (measured), so the histories' spread check is what must trip."""
+    cfg, jeng, _, _, _, _, _, rec = runs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TP.VTGaussianSLAM, "_pose_from_rel", fault)
+        teng, _, _ = _port_run(cfg, rec, jeng, SNPP.FRAMES)
+    with pytest.raises(AssertionError, match="outside the JAX engine's spread"
+                       ) as err:
+        SNPP.assert_histories_within_spread(teng, jeng, spread)
+    print(fault.__name__, str(err.value).splitlines()[0])
+
+
+def _scaled(out, channels):
+    """`out` with `channels` (an index) x (1 + 1e-4)."""
+    out = out.clone()
+    out[channels] *= 1 + 1e-4
+    return out
+
+
+def test_grouped_splat_fault_fails_the_rounding_check():
+    """test_torch_walk_boxes' smoke case: the grouped K1 rehearsal with its
+    colour and depth channels x (1 + 1e-4)."""
+    slots, counts, cp, tiles_x, ids = WB._slot_case("smoke")
+    got = _scaled(CS.splat_forward_grouped(slots, counts, cp, tiles_x, ids),
+                  (slice(None), slice(0, 6)))
+    with pytest.raises(AssertionError, match="f32 rounding bound") as err:
+        assert_splat_within_rounding(got, slots, counts, cp, tiles_x, ids,
+                                     "grouped")
+    print(str(err.value).splitlines()[0])
+
+
+def test_grouped_blend_fault_fails_the_rounding_check():
+    """A full-count record case: the grouped K4 rehearsal x (1 + 1e-4)."""
+    recs, counts = (torch.as_tensor(a) for a in k5_records(0, 128))
+    got = _scaled(CB.blend_forward_grouped(recs, counts, WB.TILES_X, 8),
+                  (Ellipsis,))
+    with pytest.raises(AssertionError, match="f32 rounding bound") as err:
+        assert_blend_within_rounding(got, recs, counts, WB.TILES_X, 8,
+                                     "grouped")
+    print(str(err.value).splitlines()[0])
+
+
+def test_width_dependent_splat_fault_fails_the_single_class_check():
+    """test_torch_two_class's binned case with the plain K1's weights x (1
+    + 1e-4) on tables wider than the sparse budget: the dense rows and the
+    MPT_D render move together, the sparse rows (MPT_S wide) do not."""
+    walk = CS._walk
+
+    def faulty(slots8, *args):
+        w = walk(slots8, *args)
+        if slots8.shape[2] > TWO.MPT_S:
+            w = dict(w, weight=w["weight"] * (1 + 1e-4))
+        return w
+
+    p, _, _, k = TWO.case.__wrapped__()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(CS, "_walk", faulty)
+        rows = TWO.binned_rows(p, TWO.kf_cache_2c(p, k))
+        with pytest.raises(AssertionError, match="merged channels 0-5"
+                           ) as err:
+            TWO.assert_single_class_rows(*rows)
+    print(str(err.value).splitlines()[0])

@@ -11,19 +11,34 @@ kept for the comparison), as in test_torch_boundaries.py.
 
 Exact: the rescue decisions, the iteration count of every tracking call,
 the length of the frame_color_loss / frame_depth_loss histories and the
-Gaussian counts. Within a tolerance: the probe losses and the histories
-within rtol 1e-3 (renders that agree to ~1e-5, summed over the frame);
-the odometer's relative pose within 1e-4 (its float32 6x6 solves round
-differently, see test_torch_odometry.py); the tracked poses within 2e-4
-(a few Adam steps of lr 1e-3 / 1e-2 carrying the kernels' ~1e-4 relative
-differences)."""
+Gaussian counts. Within a tolerance: the probe losses within rtol 1e-3
+(renders that agree to ~1e-5, summed over the frame, at the propagated
+pose); the odometer's relative pose within 1e-4 (its float32 6x6 solves
+round differently, see test_torch_odometry.py); the tracked poses within
+2e-4 (a few Adam steps of lr 1e-3 / 1e-2 carrying the kernels' ~1e-4
+relative differences).
+
+The histories (each tracked frame's final-iteration losses) are held on
+the JAX engine's own rounding spread (`assert_histories_within_spread`):
+per frame, |port - JAX| within SPREAD_K times the largest change of JAX's
+value over its runs on frames one ulp up (torch_port_util.NUDGES, each
+given the unperturbed run's poses, as the port is), and at least 1e-5 of
+it. They were held at rtol 1e-3, which lies inside that spread: JAX's own
+frame-2 depth loss moves by 2.3e-2 under a one-ulp depth nudge, its frame-1
+colour loss by 1.9e-3. The port's frame-2 depth loss sat 2.3e-5 off JAX's
+on MKL's default sgemm path of an AVX-512 host and 9.6e-4 off (0.965 of
+the old limit) under MKL_ENABLE_INSTRUCTIONS=AVX2, with the odometer's
+pose within 1e-6 on both: the last tracking iteration's loss carries the
+rounding of every Adam step before it. test_torch_parity_controls.py
+holds a wrong odometer init against the re-based check."""
 import numpy as np
 import pytest
 
 import vtgaussian_slam_tpu.core.tracking as JT
 from configs.common import make_config
 from test_torch_boundaries import _port_run, _Recorder
-from torch_port_util import first_exp_spent, one_thread  # noqa: F401
+from torch_port_util import (NUDGES, SPREAD_K, first_exp_spent,  # noqa: F401
+                             one_thread, one_ulp_frames, pin_jax_poses)
 from vtgaussian_slam_tpu.core import pipeline as JP
 from vtgaussian_slam_tpu.ops import image as JI
 
@@ -49,6 +64,51 @@ def _config(workdir):
                       max_pairs_per_tile=512, auto_pair_budget=False,
                       blend_chunk=128, prefetch=0)
     return cfg
+
+
+def jax_histories(cfg, nudge, poses):
+    """(frame_color_loss, frame_depth_loss) of the JAX engine on frames one
+    ulp up (`nudge` of torch_port_util.NUDGES), with `poses` ((quats,
+    trans) of the unperturbed run) put into its trajectory after each
+    tracked frame."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JI, "cv2", None)
+        one_ulp_frames(mp, *NUDGES[nudge])
+        eng = JP.VTGaussianSLAM(cfg)
+        pin_jax_poses(mp, eng, poses)
+        for t in range(FRAMES):
+            if t == 0:
+                eng.process_frame_zero()
+            else:
+                eng.process_frame(t)
+    return np.array(eng.frame_color_loss), np.array(eng.frame_depth_loss)
+
+
+def history_spread(cfg, jeng) -> dict:
+    """{"color", "depth": per frame, the largest |nudged - unperturbed| of
+    the JAX engine's history over the three nudges}."""
+    poses = (np.asarray(jeng.traj.quats), np.asarray(jeng.traj.trans))
+    ref = (np.array(jeng.frame_color_loss), np.array(jeng.frame_depth_loss))
+    runs = [jax_histories(cfg, n, poses) for n in NUDGES]
+    return {k: np.max([np.abs(r[i] - ref[i]) for r in runs], axis=0)
+            for i, k in enumerate(("color", "depth"))}
+
+
+def assert_histories_within_spread(teng, jeng, spread) -> None:
+    """Each history of the port within max(SPREAD_K x the JAX engine's
+    one-ulp spread, 1e-5 |JAX|) of JAX's, frame by frame; prints the
+    largest gap over its limit."""
+    for k in ("color", "depth"):
+        got = np.array(getattr(teng, f"frame_{k}_loss"))
+        ref = np.array(getattr(jeng, f"frame_{k}_loss"))
+        assert got.shape == ref.shape == spread[k].shape, (k, got, ref)
+        limit = np.maximum(SPREAD_K * spread[k], 1e-5 * np.abs(ref))
+        ratio = np.abs(got - ref) / limit
+        print(f"frame_{k}_loss: port {got}, JAX {ref}, JAX's one-ulp "
+              f"spread {spread[k]}; largest gap / limit {ratio.max():.4f}")
+        assert (ratio <= 1).all(), (
+            f"frame_{k}_loss outside the JAX engine's spread: gap / limit "
+            f"{ratio}")
 
 
 @pytest.fixture(scope="module")
@@ -89,11 +149,16 @@ def runs(tmp_path_factory):
             else:
                 jeng.process_frame(t)
     teng, _, tracked = _port_run(cfg, rec, jeng, FRAMES)
-    return cfg, jeng, teng, tracked, probes, rels, iters
+    return cfg, jeng, teng, tracked, probes, rels, iters, rec
 
 
-def test_rescue_decisions_and_iterations_match(runs):
-    cfg, jeng, teng, tracked, probes, rels, iters = runs
+@pytest.fixture(scope="module")
+def spread(runs):
+    return history_spread(runs[0], runs[1])
+
+
+def test_rescue_decisions_and_iterations_match(runs, spread):
+    cfg, jeng, teng, tracked, probes, rels, iters, _ = runs
     log = {r["t"]: r for r in teng.rescue_log}
     assert sorted(log) == sorted(probes) == list(range(1, FRAMES))
     fired = {t: r["fired"] for t, r in log.items()}
@@ -106,16 +171,13 @@ def test_rescue_decisions_and_iterations_match(runs):
                                    probes[t], rtol=1e-3)
     assert len(teng.frame_color_loss) == len(jeng.frame_color_loss) == \
         FRAMES - 1
-    np.testing.assert_allclose(teng.frame_color_loss, jeng.frame_color_loss,
-                               rtol=1e-3)
-    np.testing.assert_allclose(teng.frame_depth_loss, jeng.frame_depth_loss,
-                               rtol=1e-3)
+    assert_histories_within_spread(teng, jeng, spread)
     assert [s.n_active for s in teng.sections] == \
         [int(s.n_active) for s in jeng.sections]
 
 
 def test_odometer_and_poses_match(runs):
-    cfg, jeng, teng, tracked, probes, rels, iters = runs
+    cfg, jeng, teng, tracked, probes, rels, iters, _ = runs
     for r in teng.rescue_log:
         if r["fired"]:
             np.testing.assert_allclose(r["odometer_rel"], rels[r["t"]],

@@ -16,9 +16,17 @@ the mirrors beside the plain versions repeat their arithmetic in PyTorch:
       interpret-mode `blend_tiles` (the tolerance the plain K5 is held to
       in test_torch_generic.py), exact zeros on unwalked records;
   (c) grouped forward: `cuda_splat.splat_forward_grouped` (box cull, four
-      slots per group, torch.where blends, the stop rule) within 1e-6 of
-      each channel's largest value of `splat_forward_plain` (the same f32
-      products; the plain version's cumprod associates differently).
+      slots per group, torch.where blends, the stop rule) and
+      `splat_forward_plain` each within the f32 rounding bound of the
+      exact value of the plain walk's alphas and stop decisions
+      (torch_port_util.assert_splat_within_rounding: gamma(2M + 1) of the
+      sum of the exact products' absolute values). They were held to each
+      other within 1e-6 of each channel's largest value, which read 0.38
+      on MKL's default sgemm path of an AVX-512 host and 0.51 under
+      MKL_CBWR=COMPATIBLE: the plain version sums through an einsum, whose
+      order follows the sgemm kernel MKL picks. The bound reads <= 0.11 on
+      both; test_torch_parity_controls.py holds a 1e-4 scale of the
+      grouped output against it.
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +37,8 @@ import torch
 from test_torch_cuda import _hand_case
 from test_torch_splat_moments import CASES as SLOT_CASES
 from torch_port_util import (N_TILES, TILES_X, assert_close_scaled, k5_records,
-                             np_, slots_at, torch_cam)
+                             assert_splat_within_rounding, np_, slots_at,
+                             torch_cam)
 from vtgaussian_slam_tpu.ops.rasterizer.pallas_blend import blend_tiles
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
@@ -276,8 +285,9 @@ def test_grouped_forward_matches_plain(name):
     ref = CS.splat_forward_plain(slots, counts, cp, tiles_x, ids)
     got = CS.splat_forward_grouped(slots, counts, cp, tiles_x, ids)
     assert got.shape == ref.shape
-    for ch in range(8):
-        assert_close_scaled(got[:, ch], ref[:, ch], 1e-6, f"channel {ch}")
+    for name_, out in (("plain", ref), ("grouped", got)):
+        print(name, name_, assert_splat_within_rounding(
+            out, slots, counts, cp, tiles_x, ids, name_))
     # channel 6: 0 on a stopped pixel, else the final transmittance
     stopped = CS._walk(slots, counts, cp, tiles_x, ids)["T_after"][..., -1] \
         < CS.T_TERMINATE
@@ -299,6 +309,5 @@ def test_grouped_forward_stops_inside_a_group():
     assert bool(inside.any())
     for ng in (1, 3, 4):
         got = CS.splat_forward_grouped(slots, counts, cp, tiles_x, ids, ng=ng)
-        ref = CS.splat_forward_plain(slots, counts, cp, tiles_x, ids)
-        for ch in range(8):
-            assert_close_scaled(got[:, ch], ref[:, ch], 1e-6, f"channel {ch}")
+        assert_splat_within_rounding(got, slots, counts, cp, tiles_x, ids,
+                                     f"grouped, ng {ng}")

@@ -1,7 +1,10 @@
 """Shared inputs for the tests that hold the PyTorch port against the JAX
 package: small scenes made from a numpy seed, handed to both sides."""
 import importlib.util
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -159,6 +162,89 @@ def assert_close_scaled(got, ref, rtol, what=""):
     scale = max(np.abs(ref).max(), 1e-12)
     err = np.abs(got - ref).max()
     assert err <= rtol * scale, f"{what}: max err {err:.3e} > {rtol} * {scale:.3e}"
+
+
+U32 = 2.0 ** -24     # the f32 unit roundoff
+
+
+def gamma(n: int) -> float:
+    """n u / (1 - n u): how far n f32 roundings in a row may move a result,
+    relative to the sum of its terms' absolute values (a sum or dot product
+    of n terms, in any order or blocking) or to itself (a product of n + 1
+    factors) (Higham, Accuracy and Stability of Numerical Algorithms,
+    3.1-3.5). It holds whatever order the host's kernels sum in."""
+    return n * U32 / (1 - n * U32)
+
+
+def assert_within_f32_rounding(got, exact, scale, n, what="") -> float:
+    """|got - exact| <= gamma(n) * scale entrywise; returns the largest gap
+    over its limit."""
+    got, exact, scale = (np_(x).astype(np.float64) for x in (got, exact,
+                                                            scale))
+    assert got.shape == exact.shape == scale.shape, (got.shape, exact.shape)
+    gap = np.abs(got - exact)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.where(gap > 0, gap / (gamma(n) * scale), 0.0)
+    worst = float(np.nan_to_num(ratio, nan=np.inf).max(initial=0.0))
+    assert worst <= 1.0, (f"{what}: gap {gap.max():.3e}, {worst:.3f} of the "
+                          f"f32 rounding bound gamma({n}) x |terms|")
+    return worst
+
+
+def _exact_walk(alpha, include):
+    """(f64 blend weights, f64 product of every 1 - alpha) from a walk's
+    f32 alphas (zero where not kept) and its f32 stop decisions."""
+    a = alpha.double()
+    T_after = torch.cumprod(1.0 - a, dim=-1)
+    T_in = torch.cat([torch.ones_like(T_after[..., :1]), T_after[..., :-1]],
+                     -1)
+    weight = torch.where(include, a * T_in, torch.zeros_like(a))
+    return weight, T_after[..., -1]
+
+
+def assert_splat_within_rounding(got, slots8, counts, cp, tiles_x,
+                                 tile_ids=None, what="") -> float:
+    """A K1 output (T, 8, 256) of `slots8` held to the exact value of the
+    plain walk (`cuda_splat._walk`): its f32 alphas and stop decisions,
+    the rest in f64. Channels 0-5 sum M weight x column products, each
+    weight a product of up to M + 1 rounded factors, so an f32 evaluation
+    in any order lies within gamma(2M + 1) of the sum of the exact products'
+    absolute values; channel 6, the final transmittance (0 where the walk
+    stops), a product of M rounded factors 1 - alpha, within gamma(2M) of
+    itself; channel 7 is 0. Returns the largest gap over its limit."""
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
+    w = CS._walk(slots8, counts, cp, tiles_x, tile_ids)
+    wt, T_last = _exact_walk(w["alpha"], w["include"])
+    cols = w["cols"].double()
+    exact = torch.einsum("tpm,tcm->tcp", wt, cols)
+    scale = torch.einsum("tpm,tcm->tcp", wt.abs(), cols.abs())
+    T_end = torch.where(w["T_after"][..., -1] < CS.T_TERMINATE,
+                        torch.zeros_like(T_last), T_last)
+    M = slots8.shape[2]
+    got = np_(got)
+    np.testing.assert_array_equal(got[:, 7], 0.0, err_msg=what)
+    return max(assert_within_f32_rounding(got[:, :6], exact, scale,
+                                          2 * M + 1, f"{what} channels 0-5"),
+               assert_within_f32_rounding(got[:, 6], T_end, T_end, 2 * M,
+                                          f"{what} channel 6"))
+
+
+def assert_blend_within_rounding(got, recs, counts, tiles_x, n_channels=8,
+                                 what="") -> float:
+    """A K4 output (T, 256, C) of `recs` held to the exact value of the
+    plain walk (`cuda_blend._blend_walk`), as assert_splat_within_rounding
+    holds channels 0-5 of K1: within gamma(2M + 1) of the sum of the exact
+    products' absolute values."""
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
+    recs = torch.as_tensor(recs)
+    w = CB._blend_walk(recs, torch.as_tensor(counts), tiles_x,
+                       torch.arange(recs.shape[0]))
+    wt, _ = _exact_walk(w["alpha"], w["blended"])
+    cols = recs[:, 6:6 + n_channels].double()
+    exact = torch.einsum("tpm,tcm->tpc", wt, cols)
+    scale = torch.einsum("tpm,tcm->tpc", wt.abs(), cols.abs())
+    return assert_within_f32_rounding(got, exact, scale,
+                                      2 * recs.shape[2] + 1, what)
 
 
 FIELDS = ("rgb_colors", "logit_opacities", "log_scales")
@@ -379,6 +465,34 @@ def assert_means_at_own_poses(t_sec, j_sec, t_traj, j_traj, n) -> None:
                                err_msg="means at their own poses")
     ratio = (np.abs(got - ref) / (tol + tol * np.abs(ref))).max(initial=0.0)
     print(f"means at their own poses: largest gap / tolerance {ratio:.3f}")
+
+
+# MKL's sgemm paths a CPU parity check must hold on (MKL reads these
+# variables once, when it loads): the COMPATIBLE branch, which rounds each
+# product and sum as written, and the AVX2 kernels. On an AVX-512 host the
+# default path rounds the p2p metric's 3x3 products as the AVX2 one does
+# and as XLA's FMA contraction does; the COMPATIBLE one does not
+# (tests/test_torch_p2p.py).
+MKL_PATHS = {"compatible": {"MKL_CBWR": "COMPATIBLE"},
+             "avx2": {"MKL_ENABLE_INSTRUCTIONS": "AVX2"}}
+
+
+def on_mkl_path(path: str, module: str, function: str, *args):
+    """`module.function(*args)` (a module of tests/) in a child process
+    whose MKL runs the sgemm path MKL_PATHS[path]; returns what it returns
+    (through JSON). The child imports no conftest: JAX on the CPU, without
+    the persistent compile cache."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MKL_CBWR", "MKL_ENABLE_INSTRUCTIONS")}
+    env.update(MKL_PATHS[path], JAX_PLATFORMS="cpu")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path[:0] = [{here!r}, "
+            f"{os.path.dirname(here)!r}]; import {module} as m; "
+            f"print(json.dumps(m.{function}(*{args!r})))")
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 @pytest.fixture(autouse=True, scope="module")

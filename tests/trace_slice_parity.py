@@ -32,9 +32,12 @@ XLA_FLAGS=--xla_cpu_max_isa=AVX to see the JAX package without FMA
 contraction.
 
 p2p: test_torch_p2p's metric checks with their margins, per method and
-seed: the port's f32 error against its f64 evaluation beside its
-tolerance, each side's largest residual gap as a share of its rounding
-bound, JAX's metric error beside its bound.
+seed: each side's metric gap to the port's f64 evaluation as a share of
+its bound and relative to the f64 value beside the bound's, each side's
+largest residual gap as a share of its rounding bound, and whether the
+port's f32 metric has JAX's bits. Run it under MKL_CBWR=COMPATIBLE and
+MKL_ENABLE_INSTRUCTIONS=AVX2 too: the port's rounding follows MKL's
+sgemm path.
 """
 import os
 import sys
@@ -317,36 +320,11 @@ def spread(which, seed=1):
 
 
 def p2p():
-    """test_torch_p2p's metric checks with their margins."""
+    """test_torch_p2p's metric checks with their margins, per seed."""
     import test_torch_p2p as P2P
-    from vtgaussian_slam_tpu_torch.core import p2p as TP2P
-    d0, d1, K, w2c0, w2c1 = P2P.load_frames()
-
-    def target_of(dtype):
-        return TP2P.make_p2p_target(torch.as_tensor(d0).to(dtype),
-                                    torch.as_tensor(K).to(dtype),
-                                    torch.as_tensor(w2c0).to(dtype))
-
     for seed in (0, 1, 2):
-        src = P2P._offset(w2c1, seed)
-        jt, _ = P2P._targets(d0, K, w2c0)
-        for method in P2P.METHODS:
-            m64, p64, r64 = P2P.port_metric(target_of, d1, K, src,
-                                            torch.float64, method)
-            mt, _, rt = P2P.port_metric(target_of, d1, K, src,
-                                        torch.float32, method)
-            mj, _, rj = P2P.jax_metric(jt, d1, K, src, method)
-            delta = P2P._residual_bound(d1, K, src, p64)
-            share = [float((np.abs(r - r64)[p64] / delta).max())
-                     for r in (rt, rj)]
-            bound = P2P._metric_bound(method, p64, rj, r64)
-            tol = P2P.port_tolerance(method, p64, d1, K, src, r64)
-            print(f"seed {seed} {method:6s}: {int(p64.sum())} pairs; port "
-                  f"{abs(mt - m64) / m64:.2e} from f64 (tolerance {tol:.1e});"
-                  f" residual gaps at {share[0]:.3f} (port) / {share[1]:.3f}"
-                  f" (JAX) of their bound; JAX {abs(mj - m64) / m64:.2e} "
-                  f"(bound {bound / m64:.2e}, {abs(mj - m64) / bound:.3f} "
-                  "of it)")
+        print(f"seed {seed}:")
+        P2P.print_margins(P2P.metric_margins(seed))
 
 
 if __name__ == "__main__":
