@@ -107,6 +107,20 @@ def test_resume_keeps_the_densify_counts(resumed):
         s.n_active for s in full.sections)
 
 
+def test_port_file_holds_the_stats_a_jax_engine_adds_to(resumed, tmp_path):
+    """A JAX engine takes a checkpoint's stats whole and adds to each: the
+    port's file holds every key of the JAX engine's stats, and the four
+    per-iteration sums the port does not keep read 0 there (a resumed JAX
+    engine's averages of them cover its own frames)."""
+    path = os.path.join(TC.checkpoint_dir(resumed["cfg"]),
+                        f"ckpt_{resumed['save_t']:06d}.npz")
+    saved = TC._read(path)[1]["stats"]
+    for k in ("tracking_iter_time_sum", "tracking_iter_count",
+              "mapping_iter_time_sum", "mapping_iter_count"):
+        assert saved[k] == 0.0, k
+    assert set(JEngine(_smoke(tmp_path)).stats) <= set(saved)
+
+
 def test_latest_and_truncated_fallback(tmp_path, capsys):
     cfg = _smoke(tmp_path, save_checkpoints=True, checkpoint_interval=2)
     TEngine(cfg, device="cpu").run(num_frames=6)

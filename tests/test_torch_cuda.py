@@ -605,8 +605,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
 def _paging_engine(device, n_sections=3, n=5000):
     """The engine's paging state and methods around a few sections, without
     a dataset: the methods under test are the engine's own."""
-    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.core.pipeline import (STAT_TOTALS,
+                                                          VTGaussianSLAM)
     from vtgaussian_slam_tpu_torch.models import gaussians as G
+    from vtgaussian_slam_tpu_torch.utils.observability import Trace
     eng = object.__new__(VTGaussianSLAM)
     eng.device = torch.device(device)
     eng.section_paging = True
@@ -616,6 +618,7 @@ def _paging_engine(device, n_sections=3, n=5000):
     eng.stats = {k: 0 for k in ("t_page", "t_page_in", "t_page_fin",
                                 "section_page_ins", "section_prefetched_ins",
                                 "section_page_outs")}
+    eng.trace = Trace(eng.stats, STAT_TOTALS)
     eng.sections = [G.section_from_numpy_params(scene_np(n, 40 + i),
                                                 quantum=1024,
                                                 device=device)[0]

@@ -185,6 +185,7 @@ def _run(args, config, device, rank: int) -> int:
         return 0
 
     from .core.pipeline import VTGaussianSLAM
+    from .utils.observability import since_frame_start
     t0 = time.time()
     engine = VTGaussianSLAM(config, device=device)
     n = min(args.frames or engine.num_frames, engine.num_frames)
@@ -201,7 +202,12 @@ def _run(args, config, device, rank: int) -> int:
         ft = engine.frame_times[t]
         psnr, l1 = engine.evaluate_frame(t)
         sec = engine.sections[t // engine.bfe]
-        print(f"frame {t}: section {engine.section_ids[t]} | track "
+        # the tracked pose is committed (on the card) this long after the
+        # frame started, well before the frame returns
+        pose = since_frame_start(ft, "pose_ready")
+        pose = "-" if pose is None else f"{pose:.3f} s"
+        print(f"frame {t}: section {engine.section_ids[t]} | pose ready "
+              f"{pose} | track "
               f"{ft['track']:.3f} s spawn {ft['spawn']:.3f} s densify "
               f"{ft['densify']:.3f} s map {ft['map']:.3f} s | n_active "
               f"{sec.n_active} | PSNR {psnr:.2f} dB | depth L1 "

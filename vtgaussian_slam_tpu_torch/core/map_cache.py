@@ -332,7 +332,8 @@ class MapCacheStore:
     caches rather than one stacked buffer. k_dense > 0 builds two-class
     caches (the k_dense fullest tiles at the budget, the rest at
     max(128, mpt // sparse_div)); `tile_pad` pads single-class tables for a
-    tile-sharded group."""
+    tile-sharded group. `n_built` is the number of caches the last
+    `update` built."""
 
     STALE_AGE = 12
 
@@ -352,10 +353,12 @@ class MapCacheStore:
         self.built_n: list[int] = []
         self.built_tick: list[int] = []
         self.tick = 0
+        self.n_built = 0
         self.poses: dict[int, tuple] = {}
 
     def _build(self, params, active, ring_idx, cam, span_cap, mpt):
         quat, trans = self.poses[ring_idx]
+        self.n_built += 1
         if self.k_dense > 0:
             return build_kf_cache_2c(
                 params, active, quat, trans, cam, span_cap=span_cap,
@@ -372,6 +375,7 @@ class MapCacheStore:
         and refresh stale slots. Returns (slots, slot -> ring ids, count)."""
         self.poses[ring_idx] = (quat, trans)
         self.tick += 1
+        self.n_built = 0
         key = (params.means3d.shape[0], mpt, cam.height, cam.width, W,
                self.k_dense, self.sparse_div)
         if self.key != key:

@@ -69,6 +69,7 @@ caller passes device="cpu".
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable
@@ -86,9 +87,10 @@ from ..ops.camera import setup_camera
 from ..ops.image import geometric_edge_mask, resize_mask_nearest
 from ..ops.rasterizer.binning import BLOCK
 from ..utils.common import resolve_device, save_params_ckpt
-from ..utils.observability import (RunLogger, frame_quality, report_loss,
-                                   report_progress, save_progress_panel,
-                                   save_tracking_loss_viz)
+from ..utils.observability import (RunLogger, Trace, frame_quality,
+                                   report_loss, report_progress,
+                                   save_progress_panel,
+                                   save_tracking_loss_viz, span_seconds)
 from .config import (auto_pair_budget, prepare_config,
                      separate_densification_res)
 from .densify import (base_frame_pointcloud, densify_from_pixels,
@@ -104,13 +106,29 @@ from .track_cache import build_track_cache, build_track_cache_2c
 from .tracking import (TrackingConfig, init_track_state, probe_loss,
                        track_frame, track_frame_cached)
 
-# cumulative seconds in `stats` that `frame_times[t]["timers"]` splits per
-# frame: the boundary work, the paging, and the frame's load and staging
-TIMER_KEYS = ("t_select", "t_sel_pool", "t_sel_walk", "t_prefetch",
-              "t_track_prep", "t_track_cache", "t_spawn", "t_map_select",
-              "t_global_concat", "t_global_cache", "t_map_store", "t_page",
-              "t_page_in", "t_page_fin", "t_dataset", "t_stage",
-              "t_progress")
+# the spans that `frame_times[t]["timers"]` sums per frame, under the
+# names of the `stats` keys that sum them over the run: the boundary work,
+# the paging, and the frame's load and staging
+TIMER_SPANS = {"track.select": "t_select", "select.pool": "t_sel_pool",
+               "select.walk": "t_sel_walk", "track.prefetch": "t_prefetch",
+               "track.prep": "t_track_prep", "track.cache": "t_track_cache",
+               "spawn": "t_spawn", "map.select": "t_map_select",
+               "map.global.concat": "t_global_concat",
+               "map.global": "t_global_cache", "map.store": "t_map_store",
+               "page.out": "t_page", "page.in": "t_page_in",
+               "page.finish": "t_page_fin", "load.read": "t_dataset",
+               "load.stage": "t_stage", "progress": "t_progress"}
+# every span and counter that a `stats` key sums
+STAT_TOTALS = {**TIMER_SPANS, "densify": "t_densify",
+               "checkpoint": "t_checkpoint", "map": "mapping_frame_time_sum",
+               "track.loop": "tracking_loop_time_sum",
+               "map.loop": "mapping_loop_time_sum",
+               "track.iters": "tracking_loop_iters",
+               "map.iters": "mapping_loop_iters",
+               "page.ins": "section_page_ins",
+               "page.outs": "section_page_outs"}
+# `frame_times[t]`'s phases: the seconds of the spans of these names
+PHASES = ("track", "spawn", "densify", "map")
 
 
 def gradslam_config(data_cfg: dict) -> dict:
@@ -330,16 +348,17 @@ class VTGaussianSLAM:
         self._panels = None     # matplotlib importable (checked once)
         self.checkpoint_log: list[dict] = []
         self.stats = {
-            "tracking_iter_time_sum": 0.0, "tracking_iter_count": 0,
             "tracking_frame_time_sum": 0.0, "tracking_frame_count": 0,
             "tracking_loop_time_sum": 0.0, "tracking_loop_iters": 0,
-            "mapping_iter_time_sum": 0.0, "mapping_iter_count": 0,
             "mapping_frame_time_sum": 0.0, "mapping_frame_count": 0,
             "mapping_loop_time_sum": 0.0, "mapping_loop_iters": 0,
             "tile_truncation_frac_max": 0.0, "trunc_probe_diff_max": 0.0,
             "section_page_ins": 0, "section_prefetched_ins": 0,
             "section_page_outs": 0, "t_densify": 0.0,
-            "t_checkpoint": 0.0, **{k: 0.0 for k in TIMER_KEYS}}
+            "t_checkpoint": 0.0, **{k: 0.0 for k in TIMER_SPANS.values()}}
+        # the frames' spans and counters (frame_times[t]["spans"] /
+        # ["counts"]); they sum into `stats`
+        self.trace = Trace(self.stats, STAT_TOTALS)
         self._init_first_frame(color0, depth0)
 
     def _setup_mesh(self, md: int):
@@ -415,6 +434,7 @@ class VTGaussianSLAM:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.trace.synced()
 
     def _upload(self, x_np) -> torch.Tensor:
         """A host array as a float32 tensor on the device; to a card
@@ -611,26 +631,25 @@ class VTGaussianSLAM:
         if self.dataset_name == "replica":
             # one 1600-pixel pool scoring per boundary, read by both the
             # top-overlap pick and the chain walk
-            t0 = time.time()
-            B = len(bfs)
-            pct = overlap_percents(
-                frame.depth[0], cand_w2c, self.K, bfs.w2cs(rung),
-                bfs.depths[:rung], ranks=self._ranks(t), pixels=1600,
-                edge=tr["edge"], use_vis=False,
-                generator=self.select_generator).cpu().numpy()
-            if bf_idx == 1:
-                top_time = 0
-            else:
-                sel = select_topk_overlap(pct[:B], 1)
-                top_time = bfs.ids[sel[-1]] if sel else 0
-            self.tracking_corr.append([top_time, (bf_idx - 1) * self.bfe, t])
-            self.stats["t_sel_pool"] += time.time() - t0
-            t0 = time.time()
-            earliest = find_earliest_keyframe(
-                self.tracking_corr, lambda i: float(pct[i]), self.bfe,
-                tr["keyframe_thresh"])
-            self.earliest_corr.append([earliest, None, t])
-            self.stats["t_sel_walk"] += time.time() - t0
+            with self.trace.span("select.pool"):
+                B = len(bfs)
+                pct = overlap_percents(
+                    frame.depth[0], cand_w2c, self.K, bfs.w2cs(rung),
+                    bfs.depths[:rung], ranks=self._ranks(t), pixels=1600,
+                    edge=tr["edge"], use_vis=False,
+                    generator=self.select_generator).cpu().numpy()
+                if bf_idx == 1:
+                    top_time = 0
+                else:
+                    sel = select_topk_overlap(pct[:B], 1)
+                    top_time = bfs.ids[sel[-1]] if sel else 0
+                self.tracking_corr.append(
+                    [top_time, (bf_idx - 1) * self.bfe, t])
+            with self.trace.span("select.walk"):
+                earliest = find_earliest_keyframe(
+                    self.tracking_corr, lambda i: float(pct[i]), self.bfe,
+                    tr["keyframe_thresh"])
+                self.earliest_corr.append([earliest, None, t])
             return [earliest // self.bfe], earliest
         if self.dataset_name == "scannetpp":
             return [bf_idx - 1], (bf_idx - 1) * self.bfe
@@ -639,13 +658,12 @@ class VTGaussianSLAM:
         # over the pool less the newest base frames, earliest top-k sections
         ignore = int(self.bfe / cfg["overlap_every"])
         pool = max(len(bfs) - (ignore - 1), 1)
-        t0 = time.time()
-        pct = overlap_percents(
-            frame.depth[0], cand_w2c, self.K, bfs.w2cs(rung),
-            bfs.depths[:rung], pixels=0, edge=tr["edge"], use_vis=True,
-            kf_depth_thresh=tr["kf_depth_thresh"],
-            depth_stride=bfs.stride).cpu().numpy()
-        self.stats["t_sel_pool"] += time.time() - t0
+        with self.trace.span("select.pool"):
+            pct = overlap_percents(
+                frame.depth[0], cand_w2c, self.K, bfs.w2cs(rung),
+                bfs.depths[:rung], pixels=0, edge=tr["edge"], use_vis=True,
+                kf_depth_thresh=tr["kf_depth_thresh"],
+                depth_stride=bfs.stride).cpu().numpy()
         topk = None if bf_idx <= 2 else tr["topk_base"]
         secs = select_earliest_topk_base(
             pct[:pool], cfg, tr["earliest_thres"],
@@ -684,40 +702,54 @@ class VTGaussianSLAM:
         return mask.reshape(H, W)
 
     def _track(self, t: int, frame: Frame) -> int:
-        """Tracking for one frame; commits the best pose and returns the
-        section it tracked against."""
+        """Tracking for one frame; commits the best pose (the `pose_ready`
+        mark) and returns the section it tracked against."""
         cfg = self.config
         tr = cfg["tracking"]
-        t_host0 = time.time()
-        self._update_pair_budget()
-        bf_idx = t // self.bfe
-        boundary = t % self.bfe == 0
-        q0, tr0 = self._propagate_pose(t)
-        self._traj_write(t, q0, tr0)
+        trace = self.trace
+        with trace.span("track.prep") as prep:
+            self._update_pair_budget()
+            bf_idx = t // self.bfe
+            boundary = t % self.bfe == 0
+            q0, tr0 = self._propagate_pose(t)
+            self._traj_write(t, q0, tr0)
 
-        far_mask = None
-        if self.dataset_name != "replica":
-            # far-depth filter: factor x mean of the 30 largest frame means
-            # (the statistics grow on ScanNet++ too, where no mask applies)
-            d = frame.depth
-            dm = float((d * (d > 0)).sum() / torch.clamp((d > 0).sum(), min=1))
-            self.depth_means = sorted(self.depth_means + [dm])
-            if self.dataset_name != "scannetpp":
-                far_id = min(30, len(self.depth_means))
-                far_thres = cfg["far_depth_factor"] * float(
-                    np.mean(self.depth_means[-far_id:]))
-                far_mask = frame.depth[0] < far_thres
+            far_mask = None
+            if self.dataset_name != "replica":
+                # far-depth filter: factor x mean of the 30 largest frame
+                # means (the statistics grow on ScanNet++ too, where no
+                # mask applies)
+                d = frame.depth
+                dm = float((d * (d > 0)).sum()
+                           / torch.clamp((d > 0).sum(), min=1))
+                self.depth_means = sorted(self.depth_means + [dm])
+                if self.dataset_name != "scannetpp":
+                    far_id = min(30, len(self.depth_means))
+                    far_thres = cfg["far_depth_factor"] * float(
+                        np.mean(self.depth_means[-far_id:]))
+                    far_mask = frame.depth[0] < far_thres
 
-        num_iters = tr["num_iters"]
-        if (self.dataset_name != "scannetpp" and bf_idx == 0
-                and tr.get("base1_num_iters")):
-            num_iters = tr["base1_num_iters"]
-        sil_thres = tr["sil_thres"]
-        if boundary and tr.get("sil_thres_base") is not None:
-            sil_thres = tr["sil_thres_base"]
-        if self.odometer is not None:
-            num_iters, q0, tr0 = self._rescue(t, frame, q0, tr0, sil_thres,
-                                              num_iters)
+            num_iters = tr["num_iters"]
+            if (self.dataset_name != "scannetpp" and bf_idx == 0
+                    and tr.get("base1_num_iters")):
+                num_iters = tr["base1_num_iters"]
+            sil_thres = tr["sil_thres"]
+            if boundary and tr.get("sil_thres_base") is not None:
+                sil_thres = tr["sil_thres_base"]
+            if self.odometer is not None:
+                num_iters, q0, tr0 = self._rescue(t, frame, q0, tr0,
+                                                  sil_thres, num_iters)
+
+            at_boundary = boundary and bf_idx >= 1
+            if at_boundary:
+                with trace.span("track.select"):
+                    cand_secs, overlap_frame = self._select_boundary_sections(
+                        t, frame, self._traj_w2c(t))
+                with trace.span("track.prefetch"):
+                    self._prefetch_sections(cand_secs)
+            else:
+                cand_secs = [min(bf_idx, len(self.sections) - 1)]
+                overlap_frame = None
 
         def tcfg_of(n, metric):
             return TrackingConfig(
@@ -726,21 +758,7 @@ class VTGaussianSLAM:
                 p2p_method=tr["p2p_method"], loss_cfg=self._loss_cfg(True),
                 keep_hist=self._keep_hist)
 
-        at_boundary = boundary and bf_idx >= 1
-        if at_boundary:
-            t0 = time.time()
-            cand_secs, overlap_frame = self._select_boundary_sections(
-                t, frame, self._traj_w2c(t))
-            self.stats["t_select"] += time.time() - t0
-            t0 = time.time()
-            self._prefetch_sections(cand_secs)
-            self.stats["t_prefetch"] += time.time() - t0
-        else:
-            cand_secs, overlap_frame = [min(bf_idx, len(self.sections) - 1)], None
-
-        t_start = time.time()
-        self.stats["t_track_prep"] += t_start - t_host0
-        t_prep = 0.0       # boundary prep inside the timed window
+        t_prep = 0      # ns of boundary prep inside the tracking window
         if at_boundary and self.dataset_name in ("tum", "scannet"):
             # phase 1: each candidate section for up to 31 iterations by
             # loss; the lowest min_loss wins
@@ -753,14 +771,13 @@ class VTGaussianSLAM:
             win = int(np.argmin([float(s.min_loss) for s in states]))
             sec_id, state = cand_secs[win], states[win]
             # phase 2: visibility-masked loss, candidates by p2p
-            t0 = time.time()
-            chosen_base = sec_id * self.bfe
-            aux = self._boundary_vis_mask(t, frame, state, chosen_base)
-            if far_mask is not None:
-                aux = aux & far_mask
-            p2p_t = self._overlap_p2p_target(chosen_base)
-            t_prep = time.time() - t0
-            self.stats["t_track_prep"] += t_prep
+            with trace.span("track.prep") as bprep:
+                chosen_base = sec_id * self.bfe
+                aux = self._boundary_vis_mask(t, frame, state, chosen_base)
+                if far_mask is not None:
+                    aux = aux & far_mask
+                p2p_t = self._overlap_p2p_target(chosen_base)
+            t_prep = bprep.t1 - bprep.t0
             state.min_metric = torch.full_like(state.min_metric, 1e20)
             n2 = max(num_iters - phase1.num_iters, 0)
             if n2 > 0:
@@ -769,11 +786,10 @@ class VTGaussianSLAM:
         else:
             metric, p2p_t = "loss", None
             if at_boundary and self.dataset_name == "replica":
-                t0 = time.time()
-                metric = "p2p"
-                p2p_t = self._overlap_p2p_target(overlap_frame)
-                t_prep = time.time() - t0
-                self.stats["t_track_prep"] += t_prep
+                with trace.span("track.prep") as bprep:
+                    metric = "p2p"
+                    p2p_t = self._overlap_p2p_target(overlap_frame)
+                t_prep = bprep.t1 - bprep.t0
             tcfg = tcfg_of(num_iters, metric)
             sec_id = cand_secs[0]
             sec = self._sec(sec_id)
@@ -785,19 +801,18 @@ class VTGaussianSLAM:
                                         tcfg)
 
         self._sync()
-        dt = time.time() - t_start - t_prep
-        self.stats["tracking_frame_time_sum"] += dt
+        self._traj_write(t, state.best_quat, state.best_trans)
+        ready = trace.mark("pose_ready")
+        # the tracking window: from the host prep's end to the committed
+        # pose, less the boundary's prep inside it
+        self.stats["tracking_frame_time_sum"] += (
+            ready - prep.t1 - t_prep) / 1e9
         self.stats["tracking_frame_count"] += 1
-        two_phase = at_boundary and self.dataset_name in ("tum", "scannet")
-        total_iters = num_iters * (max(1, len(cand_secs)) if two_phase else 1)
-        self.stats["tracking_iter_time_sum"] += dt
-        self.stats["tracking_iter_count"] += max(total_iters, 1)
         if self.dataset_name == "scannetpp":
             # the final iteration's losses, the probe's running median
             im_l, d_l = torch.stack([state.im_loss, state.depth_loss]).tolist()
             self.frame_color_loss.append(im_l)
             self.frame_depth_loss.append(d_l)
-        self._traj_write(t, state.best_quat, state.best_trans)
         self._log_track_losses()
         return sec_id
 
@@ -855,14 +870,14 @@ class VTGaussianSLAM:
         tpu.track_rebin_every iterations when that is set, then the
         truncation probe at the best pose on its cadence; the generic loop
         when the cache route is off."""
+        trace = self.trace
         if not self.track_cached:
-            t0 = time.time()
-            state, im_h, d_h = track_frame(sec.params, sec.active_mask(),
-                                           state, frame, aux_mask, self.cam,
-                                           tcfg, p2p_t)
-            self._sync()
-            self.stats["tracking_loop_time_sum"] += time.time() - t0
-            self.stats["tracking_loop_iters"] += tcfg.num_iters
+            with trace.span("track.loop"):
+                state, im_h, d_h = track_frame(sec.params, sec.active_mask(),
+                                               state, frame, aux_mask,
+                                               self.cam, tcfg, p2p_t)
+                self._sync()
+            trace.count("track.iters", tcfg.num_iters)
             self._track_hist_add(sec, state, frame, aux_mask, tcfg,
                                  [(im_h, d_h)])
             return state
@@ -878,28 +893,26 @@ class VTGaussianSLAM:
         mpt_s = max(128, mpt // self._two_class_div)
         hists = []
         for seg in seg_lens:
-            t0 = time.time()
-            if self._k_dense > 0:
-                cache = build_track_cache_2c(
-                    sec.params, sec.active_mask(), state.quat, state.trans,
-                    self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
-                    mpt_sparse=mpt_s, k_dense=self._k_dense,
-                    select=self._bin_select)
-            else:
-                cache = build_track_cache(
-                    sec.params, sec.active_mask(), state.quat, state.trans,
-                    self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
-                    chunk=bk["chunk"], tile_pad=self.tile_pad,
-                    select=self._bin_select)
-            self.stats["t_track_cache"] += time.time() - t0
-            t0 = time.time()
-            state, im_h, d_h = self._track_cached_fn(
-                cache, state, frame, aux_mask, self.cam,
-                tcfg._replace(num_iters=seg), p2p_t)
-            hists.append((im_h, d_h))
-            self._sync()
-            self.stats["tracking_loop_time_sum"] += time.time() - t0
-            self.stats["tracking_loop_iters"] += seg
+            with trace.span("track.cache"):
+                if self._k_dense > 0:
+                    cache = build_track_cache_2c(
+                        sec.params, sec.active_mask(), state.quat,
+                        state.trans, self.cam, span_cap=bk["span_cap"],
+                        max_pairs_per_tile=mpt, mpt_sparse=mpt_s,
+                        k_dense=self._k_dense, select=self._bin_select)
+                else:
+                    cache = build_track_cache(
+                        sec.params, sec.active_mask(), state.quat,
+                        state.trans, self.cam, span_cap=bk["span_cap"],
+                        max_pairs_per_tile=mpt, chunk=bk["chunk"],
+                        tile_pad=self.tile_pad, select=self._bin_select)
+            with trace.span("track.loop"):
+                state, im_h, d_h = self._track_cached_fn(
+                    cache, state, frame, aux_mask, self.cam,
+                    tcfg._replace(num_iters=seg), p2p_t)
+                hists.append((im_h, d_h))
+                self._sync()
+            trace.count("track.iters", seg)
             if self._k_dense > 0:
                 # saturation at each tile's own class budget (padded rows
                 # have count 0)
@@ -960,31 +973,34 @@ class VTGaussianSLAM:
 
     def _densify(self, t, frame, edge_mask_np, color_np, depth_np) -> int:
         """Insert new Gaussians into the current section."""
+        trace = self.trace
         bf_idx = t // self.bfe
         sec = self._sec(bf_idx)
         quat, trans = self.traj.quats[t], self.traj.trans[t]
-        npres = densify_nonpresence(
-            sec.params, sec.active_mask(), quat, trans, frame, self.cam,
-            self.config["mapping"]["sil_thres"],
-            tuple(sorted(self.backend_kwargs.items())))
-        np_np = npres.cpu().numpy()
-        d0 = depth_np[..., 0]
-        idx_b = np.flatnonzero(np_np & (d0 > 0))
-        parts = [self._pixel_candidates(idx_b, d0, color_np, self.cam, quat,
-                                        trans)]
-        dcam = self.densify_cam
-        np_mask = resize_mask_nearest(np_np.astype(np.uint8), dcam.width,
-                                      dcam.height).astype(bool)
-        e_mask = resize_mask_nearest(edge_mask_np.astype(np.uint8), dcam.width,
-                                     dcam.height).astype(bool)
-        if self.sep_densify:
-            dcolor_np, ddepth_np = self.densify_dataset[t][:2]
-        else:
-            dcolor_np, ddepth_np = color_np, depth_np
-        dd0 = np.asarray(ddepth_np)[..., 0]
-        idx_s = np.flatnonzero(np_mask & e_mask & (dd0 > 0))
-        parts.append(self._pixel_candidates(idx_s, dd0, np.asarray(dcolor_np),
-                                            dcam, quat, trans))
+        with trace.span("densify.render"):
+            npres = densify_nonpresence(
+                sec.params, sec.active_mask(), quat, trans, frame, self.cam,
+                self.config["mapping"]["sil_thres"],
+                tuple(sorted(self.backend_kwargs.items())))
+            np_np = npres.cpu().numpy()
+        with trace.span("densify.candidates"):
+            d0 = depth_np[..., 0]
+            idx_b = np.flatnonzero(np_np & (d0 > 0))
+            parts = [self._pixel_candidates(idx_b, d0, color_np, self.cam,
+                                            quat, trans)]
+            dcam = self.densify_cam
+            np_mask = resize_mask_nearest(np_np.astype(np.uint8), dcam.width,
+                                          dcam.height).astype(bool)
+            e_mask = resize_mask_nearest(edge_mask_np.astype(np.uint8),
+                                         dcam.width, dcam.height).astype(bool)
+            if self.sep_densify:
+                dcolor_np, ddepth_np = self.densify_dataset[t][:2]
+            else:
+                dcolor_np, ddepth_np = color_np, depth_np
+            dd0 = np.asarray(ddepth_np)[..., 0]
+            idx_s = np.flatnonzero(np_mask & e_mask & (dd0 > 0))
+            parts.append(self._pixel_candidates(
+                idx_s, dd0, np.asarray(dcolor_np), dcam, quat, trans))
         n_new = len(idx_b) + len(idx_s)
         need = sec.n_active + n_new
         if need > sec.capacity:
@@ -1028,11 +1044,10 @@ class VTGaussianSLAM:
 
     def _fixed_concat(self):
         """The two frozen sections fused into one buffer (params, active)."""
-        t0 = time.time()
-        fixed, _ = G.concat_sections(
-            [self._sec(i) for i in self.fixed_section_ids],
-            quantum=self.quantum)
-        self.stats["t_global_concat"] += time.time() - t0
+        with self.trace.span("map.global.concat"):
+            fixed, _ = G.concat_sections(
+                [self._sec(i) for i in self.fixed_section_ids],
+                quantum=self.quantum)
         return fixed.params, fixed.active_mask()
 
     def _global_cache(self, sec, active, start: int, mpt: int, span_cap: int):
@@ -1040,32 +1055,34 @@ class VTGaussianSLAM:
         base keyframe, rebuilt when its key changes or every
         tpu.global_cache_refresh_every frames; its pair budget is sized from
         the concat's count."""
-        t0 = time.time()
-        refresh_every = int(
-            self.config["tpu"].get("global_cache_refresh_every", 4))
-        sizes = [int(self._sec(i).n_active) for i in self.fixed_section_ids]
-        fixed_cap = G.round_capacity(sum(sizes), self.quantum)
-        gkey = (self.fixed_section_ids, sec.capacity, fixed_cap, mpt,
-                self._mpt_boost, start)
-        if (self._gcache is None or self._gcache_key != gkey
-                or self._gcache_age >= refresh_every):
-            self._gcache = None     # free the old binning first
-            fixed_params, fixed_active = self._fixed_concat()
-            tiles = (-(-self.cam.width // 16)) * (-(-self.cam.height // 16))
-            g_mpt = auto_pair_budget(sec.n_active + sum(sizes), tiles,
-                                     span_cap, mpt, boost=self._mpt_boost)
-            gc = build_global_cache(
-                fixed_params, fixed_active, sec.params, active,
-                self.traj.quats[start].clone(), self.traj.trans[start].clone(),
-                self.cam, span_cap=span_cap, max_pairs_per_tile=g_mpt,
-                tile_pad=self.tile_pad, select=self._bin_select)
-            g_trunc = float((gc.counts[:tiles] >= g_mpt).double().mean())
-            self.stats["tile_truncation_frac_max"] = max(
-                self.stats["tile_truncation_frac_max"], g_trunc)
-            self._gcache, self._gcache_key, self._gcache_age = gc, gkey, 1
-        else:
-            self._gcache_age += 1
-        self.stats["t_global_cache"] += time.time() - t0
+        with self.trace.span("map.global"):
+            refresh_every = int(
+                self.config["tpu"].get("global_cache_refresh_every", 4))
+            sizes = [int(self._sec(i).n_active)
+                     for i in self.fixed_section_ids]
+            fixed_cap = G.round_capacity(sum(sizes), self.quantum)
+            gkey = (self.fixed_section_ids, sec.capacity, fixed_cap, mpt,
+                    self._mpt_boost, start)
+            build = (self._gcache is None or self._gcache_key != gkey
+                     or self._gcache_age >= refresh_every)
+            if build:
+                self._gcache = None     # free the old binning first
+                fixed_params, fixed_active = self._fixed_concat()
+                tiles = (-(-self.cam.width // 16)) * (-(-self.cam.height // 16))
+                g_mpt = auto_pair_budget(sec.n_active + sum(sizes), tiles,
+                                         span_cap, mpt, boost=self._mpt_boost)
+                gc = build_global_cache(
+                    fixed_params, fixed_active, sec.params, active,
+                    self.traj.quats[start].clone(),
+                    self.traj.trans[start].clone(), self.cam,
+                    span_cap=span_cap, max_pairs_per_tile=g_mpt,
+                    tile_pad=self.tile_pad, select=self._bin_select)
+                g_trunc = float((gc.counts[:tiles] >= g_mpt).double().mean())
+                self.stats["tile_truncation_frac_max"] = max(
+                    self.stats["tile_truncation_frac_max"], g_trunc)
+                self._gcache, self._gcache_key, self._gcache_age = gc, gkey, 1
+            else:
+                self._gcache_age += 1
         return self._gcache
 
     def _map(self, t: int, frame: Frame):
@@ -1075,16 +1092,15 @@ class VTGaussianSLAM:
         cfg = self.config
         mp = cfg["mapping"]
         self._update_pair_budget()
+        trace = self.trace
         bf_idx = t // self.bfe
         idx_in = t % self.bfe
-        t_start = time.time()
         if idx_in == 0 and bf_idx != 0:
-            t0 = time.time()
-            overlap_sec = self._select_mapping_overlap(t, frame)
-            self.fixed_section_ids = (overlap_sec, bf_idx - 1)
-            self.mapping_corr.append(
-                [overlap_sec * self.bfe, (bf_idx - 1) * self.bfe, t])
-            self.stats["t_map_select"] += time.time() - t0
+            with trace.span("map.select"):
+                overlap_sec = self._select_mapping_overlap(t, frame)
+                self.fixed_section_ids = (overlap_sec, bf_idx - 1)
+                self.mapping_corr.append(
+                    [overlap_sec * self.bfe, (bf_idx - 1) * self.bfe, t])
         use_global = bf_idx != 0 and self.fixed_section_ids is not None
         sec = self._sec(bf_idx)
         mcfg = MappingConfig(
@@ -1102,12 +1118,12 @@ class VTGaussianSLAM:
         else:
             mbk = self.map_backend_kwargs
             W = min(self.bfe, int(cfg["tpu"].get("map_cache_slots", 64)))
-            t0 = time.time()
-            slots, slot_ids, count = self.map_store.update(
-                sec.params, sec.active_mask(), sec.n_active, idx_in,
-                self.traj.quats[t].clone(), self.traj.trans[t].clone(),
-                self.cam, mbk["span_cap"], mbk["max_pairs_per_tile"], W)
-            self.stats["t_map_store"] += time.time() - t0
+            with trace.span("map.store"):
+                slots, slot_ids, count = self.map_store.update(
+                    sec.params, sec.active_mask(), sec.n_active, idx_in,
+                    self.traj.quats[t].clone(), self.traj.trans[t].clone(),
+                    self.cam, mbk["span_cap"], mbk["max_pairs_per_tile"], W)
+            trace.count("map.binnings_built", self.map_store.n_built)
             gc = (self._global_cache(sec, sec.active_mask(), start,
                                      mbk["max_pairs_per_tile"],
                                      mbk["span_cap"])
@@ -1117,15 +1133,14 @@ class VTGaussianSLAM:
                                 frame_ids=[start + r for r in range(self.bfe)])
             draws = (self.map_draws(t, mcfg.num_iters, count)
                      if self.map_draws is not None else None)
-            t0 = time.time()
-            new_params, hist = self._map_binned_fn(
-                sec.params, kf, slots, slot_ids, self.cam, mcfg, draws=draws,
-                generator=self.map_generator, gc=gc)
-            self._page_cold_finish(
-                hot={bf_idx} | set(self.fixed_section_ids or ()))
-            self._sync()
-            self.stats["mapping_loop_time_sum"] += time.time() - t0
-            self.stats["mapping_loop_iters"] += mcfg.num_iters
+            with trace.span("map.loop"):
+                new_params, hist = self._map_binned_fn(
+                    sec.params, kf, slots, slot_ids, self.cam, mcfg,
+                    draws=draws, generator=self.map_generator, gc=gc)
+                self._page_cold_finish(
+                    hot={bf_idx} | set(self.fixed_section_ids or ()))
+                self._sync()
+            trace.count("map.iters", mcfg.num_iters)
         self.sections[bf_idx] = sec.replace(params=new_params)
         if hist is not None:
             # (num_iters, 3) [total, im, depth]: one device read per frame
@@ -1133,11 +1148,7 @@ class VTGaussianSLAM:
                 self._wandb_map_step = report_loss(
                     {"loss": loss, "im": il, "depth": dl}, self.logger,
                     self._wandb_map_step, mapping=True)
-        dt = time.time() - t_start
-        self.stats["mapping_frame_time_sum"] += dt
         self.stats["mapping_frame_count"] += 1
-        self.stats["mapping_iter_time_sum"] += dt
-        self.stats["mapping_iter_count"] += max(mp["num_iters"], 1)
 
     def _map_generic(self, t: int, frame: Frame, sec, mcfg: MappingConfig,
                      use_global: bool):
@@ -1162,112 +1173,113 @@ class VTGaussianSLAM:
             fixed_params, fixed_active = self._fixed_concat()
         draws = (self.map_draws(t, mcfg.num_iters, count)
                  if self.map_draws is not None else None)
-        t0 = time.time()
-        new_params, hist = map_frame(sec.params, sec.active_mask(), kf,
-                                     self.cam, mcfg, draws=draws,
-                                     generator=self.map_generator,
-                                     fixed_params=fixed_params,
-                                     fixed_active=fixed_active)
-        self._page_cold_finish(hot={t // self.bfe}
-                               | set(self.fixed_section_ids or ()))
-        self._sync()
-        self.stats["mapping_loop_time_sum"] += time.time() - t0
-        self.stats["mapping_loop_iters"] += mcfg.num_iters
+        with self.trace.span("map.loop"):
+            new_params, hist = map_frame(sec.params, sec.active_mask(), kf,
+                                         self.cam, mcfg, draws=draws,
+                                         generator=self.map_generator,
+                                         fixed_params=fixed_params,
+                                         fixed_active=fixed_active)
+            self._page_cold_finish(hot={t // self.bfe}
+                                   | set(self.fixed_section_ids or ()))
+            self._sync()
+        self.trace.count("map.iters", mcfg.num_iters)
         return new_params, hist
 
     # ------------------------------------------------------------------
     def process_frame_zero(self):
         """Frame 0: no tracking; register base frame 0 and map the freshly
         initialized section."""
-        before = {k: self.stats[k] for k in TIMER_KEYS}
-        t0 = time.time()
-        self.baseframes.append(0, self._frame0.depth[0], self.traj.quats[0],
-                               self.traj.trans[0])
-        self.section_ids[0] = 0
-        if self.config["mapping"]["num_iters"] > 0:
-            self._map(0, self._frame0)
-        self._sync()
-        self.frame_times[0] = {
-            "track": 0.0, "spawn": 0.0, "densify": 0.0,
-            "map": time.time() - t0,
-            "timers": {k: self.stats[k] - before[k] for k in TIMER_KEYS
-                       if self.stats[k] != before[k]}}
+        trace = self.trace
+        mapped = self.config["mapping"]["num_iters"] > 0
+        with trace.frame() as rec:
+            with trace.span("map") if mapped else contextlib.nullcontext():
+                self.baseframes.append(0, self._frame0.depth[0],
+                                       self.traj.quats[0], self.traj.trans[0])
+                self.section_ids[0] = 0
+                if mapped:
+                    self._map(0, self._frame0)
+                self._sync()
+        self.frame_times[0] = self._frame_times(rec)
         self.frames_done = max(self.frames_done, 1)
 
     def process_frame(self, t: int):
         if t == 0:
             return self.process_frame_zero()
         cfg = self.config
+        trace = self.trace
         self._cur_frame = t
-        before = {k: self.stats[k] for k in TIMER_KEYS}
-        t0 = time.time()
-        color_np, depth_np, _, gt_pose = self.dataset[t]
-        self._color_np = color_np
-        self.stats["t_dataset"] += time.time() - t0
-        self._remember_depth(t, np.asarray(depth_np)[..., 0].astype(np.float32))
-        t0 = time.time()
-        frame = self._stage(color_np, depth_np)
-        self.stats["t_stage"] += time.time() - t0
-        gt_w2c = np.linalg.inv(np.asarray(gt_pose, np.float64))
-        self.gt_w2c.append(gt_w2c)
-        bf_idx = t // self.bfe
-        idx_in = t % self.bfe
-        boundary = idx_in == 0
-        times = {"track": 0.0, "spawn": 0.0, "densify": 0.0, "map": 0.0}
+        with trace.frame() as rec:
+            with trace.span("load.read"):
+                color_np, depth_np, _, gt_pose = self.dataset[t]
+            self._color_np = color_np
+            self._remember_depth(
+                t, np.asarray(depth_np)[..., 0].astype(np.float32))
+            with trace.span("load.stage"):
+                frame = self._stage(color_np, depth_np)
+            gt_w2c = np.linalg.inv(np.asarray(gt_pose, np.float64))
+            self.gt_w2c.append(gt_w2c)
+            bf_idx = t // self.bfe
+            idx_in = t % self.bfe
+            boundary = idx_in == 0
 
-        t0 = time.time()
-        if not cfg["tracking"]["use_gt_poses"]:
-            self.section_ids[t] = self._track(t, frame)
-        else:
-            quat, trans = geo.w2c_to_pose(
-                torch.as_tensor(gt_w2c, dtype=torch.float32, device=self.device))
-            self._traj_write(t, quat, trans)
-            self.section_ids[t] = min(bf_idx, len(self.sections) - 1)
-        self._sync()
-        times["track"] = time.time() - t0
-
-        if boundary:
-            t0 = time.time()
-            self._new_base_section(t, frame, color_np)
-            self._sync()
-            times["spawn"] = time.time() - t0
-            self.stats["t_spawn"] += times["spawn"]
-        self._ring_write(idx_in, frame)
-
-        if (t + 1) % cfg["map_every"] == 0:
-            if cfg["mapping"]["add_new_gaussians"] and not boundary:
-                t0 = time.time()
-                edge_np = self._edge_mask_for(color_np, self.cam.width,
-                                              self.cam.height)
-                self._densify(t, frame, edge_np, color_np, depth_np)
+            with trace.span("track"):
+                if not cfg["tracking"]["use_gt_poses"]:
+                    self.section_ids[t] = self._track(t, frame)
+                else:
+                    quat, trans = geo.w2c_to_pose(torch.as_tensor(
+                        gt_w2c, dtype=torch.float32, device=self.device))
+                    self._traj_write(t, quat, trans)
+                    self.section_ids[t] = min(bf_idx, len(self.sections) - 1)
                 self._sync()
-                times["densify"] = time.time() - t0
-                self.stats["t_densify"] += times["densify"]
-            if cfg["mapping"]["num_iters"] > 0:
-                t0 = time.time()
-                self._map(t, frame)
-                self._sync()
-                times["map"] = time.time() - t0
-        if cfg["use_wandb"] and (
-                (t + 1) % cfg["report_global_progress_every"] == 0):
-            t0 = time.time()
-            self._report_progress(t, frame)
-            self.stats["t_progress"] += time.time() - t0
 
-        # base-frame bookkeeping: replica registers boundary frames, the
-        # others every overlap_every-th keyframe
-        if ((t + 1) % cfg["keyframe_every"] == 0 or t == self.num_frames - 2) \
-                and np.isfinite(gt_w2c).all():
-            is_base = (boundary if self.dataset_name == "replica"
-                       else t % cfg["overlap_every"] == 0)
-            if is_base:
-                self.baseframes.append(t, frame.depth[0], self.traj.quats[t],
-                                       self.traj.trans[t])
-        self._page_cold_sections({bf_idx} | set(self.fixed_section_ids or ()))
-        times["timers"] = {k: self.stats[k] - before[k] for k in TIMER_KEYS
-                           if self.stats[k] != before[k]}
-        self.frame_times[t] = times
+            if boundary:
+                with trace.span("spawn"):
+                    self._new_base_section(t, frame, color_np)
+                    self._sync()
+            self._ring_write(idx_in, frame)
+
+            if (t + 1) % cfg["map_every"] == 0:
+                if cfg["mapping"]["add_new_gaussians"] and not boundary:
+                    with trace.span("densify"):
+                        with trace.span("densify.edge"):
+                            edge_np = self._edge_mask_for(
+                                color_np, self.cam.width, self.cam.height)
+                        self._densify(t, frame, edge_np, color_np, depth_np)
+                        self._sync()
+                if cfg["mapping"]["num_iters"] > 0:
+                    with trace.span("map"):
+                        self._map(t, frame)
+                        self._sync()
+            if cfg["use_wandb"] and (
+                    (t + 1) % cfg["report_global_progress_every"] == 0):
+                with trace.span("progress"):
+                    self._report_progress(t, frame)
+
+            # base-frame bookkeeping: replica registers boundary frames, the
+            # others every overlap_every-th keyframe
+            if ((t + 1) % cfg["keyframe_every"] == 0
+                    or t == self.num_frames - 2) and np.isfinite(gt_w2c).all():
+                is_base = (boundary if self.dataset_name == "replica"
+                           else t % cfg["overlap_every"] == 0)
+                if is_base:
+                    self.baseframes.append(t, frame.depth[0],
+                                           self.traj.quats[t],
+                                           self.traj.trans[t])
+            self._page_cold_sections({bf_idx}
+                                     | set(self.fixed_section_ids or ()))
+        self.frame_times[t] = self._frame_times(rec)
         self.frames_done = max(self.frames_done, t + 1)
+
+    @staticmethod
+    def _frame_times(rec) -> dict:
+        """`frame_times[t]`: the phases' and the timers' seconds, each the
+        sum of its spans, with the frame's spans and counters."""
+        sums = span_seconds(rec.spans)
+        times = {p: sums.get(p, 0.0) for p in PHASES}
+        times["timers"] = {k: sums[n] for n, k in TIMER_SPANS.items()
+                           if n in sums}
+        times["spans"], times["counts"] = rec.spans, rec.counts
+        return times
 
     def _report_progress(self, t: int, frame: Frame):
         """The use_wandb per-frame report: a render at the committed pose
@@ -1358,10 +1370,9 @@ class VTGaussianSLAM:
                 or (t + 1) % cfg.get("checkpoint_interval", 100)):
             return
         from ..utils.checkpoint import save_checkpoint
-        t0 = time.time()
-        path = save_checkpoint(self, t)
-        dt = time.time() - t0
-        self.stats["t_checkpoint"] += dt
+        with self.trace.span("checkpoint") as sp:
+            path = save_checkpoint(self, t)
+        dt = (sp.t1 - sp.t0) / 1e9
         self.frame_times[t]["checkpoint"] = dt
         # a truncation-probe reading in flight is not saved (a resume
         # re-probes), so the resumed run can part from this one there
@@ -1424,10 +1435,9 @@ class VTGaussianSLAM:
     def _sec(self, i: int) -> G.Section:
         """Section i on the device, paging it back in if it is on the host."""
         if i in self._paged:
-            t0 = time.time()
-            self._page_in(i)
-            self.stats["section_page_ins"] += 1
-            self.stats["t_page_in"] += time.time() - t0
+            with self.trace.span("page.in"):
+                self._page_in(i)
+            self.trace.count("page.ins", 1)
         return self.sections[i]
 
     def _page_in(self, i: int):
@@ -1453,50 +1463,49 @@ class VTGaussianSLAM:
             self._page_pending.pop(i, None)
             if i in self._paged:
                 self._page_in(i)
-                self.stats["section_page_ins"] += 1
+                self.trace.count("page.ins", 1)
                 self.stats["section_prefetched_ins"] += 1
 
     def _page_cold_sections(self, hot):
         """Start the page-out of every device section outside `hot`."""
         if not self.section_paging:
             return
-        t0 = time.time()
         cold = [i for i in range(len(self.sections))
                 if i not in hot and i not in self._paged
                 and i not in self._page_pending]
-        for i in cold:
-            sec = self.sections[i]
-            if self._page_stream is None:
-                self._page_pending[i] = (sec, None)
-                continue
-            side = self._page_stream
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                host = G.map_section(sec, lambda x: torch.empty(
-                    x.shape, dtype=x.dtype, pin_memory=True).copy_(
-                        x, non_blocking=True))
-                event = torch.cuda.Event()
-                event.record(side)
-            for x in G.section_tensors(sec):
-                x.record_stream(side)
-            self._page_pending[i] = (host, event)
-        if cold:
-            self.stats["t_page"] += time.time() - t0
+        if not cold:
+            return
+        with self.trace.span("page.out"):
+            for i in cold:
+                sec = self.sections[i]
+                if self._page_stream is None:
+                    self._page_pending[i] = (sec, None)
+                    continue
+                side = self._page_stream
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    host = G.map_section(sec, lambda x: torch.empty(
+                        x.shape, dtype=x.dtype, pin_memory=True).copy_(
+                            x, non_blocking=True))
+                    event = torch.cuda.Event()
+                    event.record(side)
+                for x in G.section_tensors(sec):
+                    x.record_stream(side)
+                self._page_pending[i] = (host, event)
 
     def _page_cold_finish(self, hot=()):
         """Swap the host copies in for the pending page-outs, except for
         sections that became hot again (they stay on the device)."""
         if not self._page_pending:
             return
-        t0 = time.time()
-        for i, (host, event) in self._page_pending.items():
-            if i in hot or i in self._paged:
-                continue
-            self.sections[i] = host
-            self._paged[i] = event
-            self.stats["section_page_outs"] += 1
-        self._page_pending = {}
-        self.stats["t_page_fin"] += time.time() - t0
+        with self.trace.span("page.finish"):
+            for i, (host, event) in self._page_pending.items():
+                if i in hot or i in self._paged:
+                    continue
+                self.sections[i] = host
+                self._paged[i] = event
+                self.trace.count("page.outs", 1)
+            self._page_pending = {}
 
     def paged_sections(self) -> list[int]:
         """The sections held in host memory."""
@@ -1524,16 +1533,10 @@ class VTGaussianSLAM:
         return {
             "avg_tracking_iter_ms": 1000 * s["tracking_loop_time_sum"]
             / max(s["tracking_loop_iters"], 1),
-            "avg_tracking_iter_ms_incl_overhead":
-            1000 * s["tracking_iter_time_sum"]
-            / max(s["tracking_iter_count"], 1),
             "avg_tracking_frame_s": s["tracking_frame_time_sum"]
             / max(s["tracking_frame_count"], 1),
             "avg_mapping_iter_ms": 1000 * s["mapping_loop_time_sum"]
             / max(s["mapping_loop_iters"], 1),
-            "avg_mapping_iter_ms_incl_overhead":
-            1000 * s["mapping_iter_time_sum"]
-            / max(s["mapping_iter_count"], 1),
             "avg_mapping_frame_s": s["mapping_frame_time_sum"]
             / max(s["mapping_frame_count"], 1),
             "num_gaussians": sum(int(sec.n_active) for sec in self.sections),
@@ -1544,7 +1547,8 @@ class VTGaussianSLAM:
             "section_page_ins": s["section_page_ins"],
             "section_prefetched_ins": s["section_prefetched_ins"],
             "section_page_outs": s["section_page_outs"],
-            **{k: s[k] for k in TIMER_KEYS}, "t_densify": s["t_densify"],
+            **{k: s[k] for k in TIMER_SPANS.values()},
+            "t_densify": s["t_densify"],
         }
 
     # ------------------------------------------------------------------

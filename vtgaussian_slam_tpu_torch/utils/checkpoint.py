@@ -43,7 +43,12 @@ _JAX_STAT_ALIASES = {
     "mapping_jit_time_sum": "mapping_loop_time_sum",
     "mapping_jit_iters": "mapping_loop_iters",
 }
-_JAX_ONLY_STATS = ("t_densify_fetch", "t_densify_host", "t_stage_ahead")
+# the JAX engine's stats that the port does not keep, written as 0 so that
+# a JAX engine resumed from the port's file finds every key it adds to
+# (its averages of these then cover the frames it ran itself)
+_JAX_ONLY_STATS = ("t_densify_fetch", "t_densify_host", "t_stage_ahead",
+                   "tracking_iter_time_sum", "tracking_iter_count",
+                   "mapping_iter_time_sum", "mapping_iter_count")
 
 
 def checkpoint_dir(config: dict) -> str:

@@ -1,4 +1,5 @@
-"""Run logging, per-iteration loss records and per-frame progress reports.
+"""Run logging, per-iteration loss records, per-frame progress reports, and
+the engine's spans and counters.
 
 Parity: `vtgaussian_slam_tpu/utils/observability.py` (the reference's wandb
 plumbing). `RunLogger` logs to wandb when it imports and the run enables
@@ -6,15 +7,156 @@ it, else to `<run>/events.jsonl` with the same record names. Neither wandb
 nor matplotlib is needed: both are imported inside the functions that use
 them. `frame_quality` computes on the render's device and returns Python
 floats from one device read.
+
+`Trace` records the engine's spans, marks and counters per frame, in
+memory (nothing is written out). Its stamps are `time.time_ns()`, the
+clock `torch.profiler` keeps: a profiler event's absolute time is
+`prof.profiler.kineto_results.trace_start_ns()` plus its
+`time_range.start` (us) x 1000, so a span lands on the device trace's
+timeline as it is. A span that ends on the engine's synchronise is
+`synced` (its length is the device work it enqueued); any other span is
+host time, its device cost read from a trace. The recorder itself never
+synchronises and reads nothing from the device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class Span(NamedTuple):
+    """One span (a mark: t0 == t1) of a frame, stamped in
+    `time.time_ns()`; `parent` is the index of the enclosing span in the
+    frame's list, -1 for the frame's root."""
+    name: str
+    t0: int
+    t1: int
+    parent: int
+    synced: bool
+
+
+class FrameRecord:
+    """A frame's spans (in the order they opened, the root first) and
+    counters, complete once the frame's block has closed."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counts: dict[str, int] = {}
+
+
+class _Open:
+    """A span while it is open; `t0`, `t1` (ns) readable once closed."""
+    __slots__ = ("trace", "name", "t0", "t1", "index", "synced")
+
+    def __init__(self, trace: "Trace", name: str):
+        self.trace, self.name = trace, name
+        self.t0 = self.t1 = 0
+        self.index, self.synced = -1, False
+
+    def __enter__(self):
+        self.trace._enter(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.trace._exit(self)
+        return False
+
+
+class Trace:
+    """The engine's spans, marks and counters.
+
+    `frame()` opens a frame (its root span, named "frame") and yields the
+    `FrameRecord` that collects what the frame records. Inside it,
+    `span(name)` is a block, `mark(name)` a zero-length span, and
+    `count(name, n)` adds n to the frame's counter. Every span and counter
+    named in `totals` is also summed, in seconds or units, into
+    `stats[totals[name]]`, in a frame or outside one (a checkpoint, the
+    last page-outs of a run); outside a frame nothing else is kept.
+    `synced()`, called by the engine's synchronise, marks the innermost
+    open span synced until a child span opens or closes under it."""
+
+    def __init__(self, stats: dict, totals: dict[str, str]):
+        self.stats, self.totals = stats, totals
+        self.record: FrameRecord | None = None
+        self._open: list[_Open] = []
+
+    def span(self, name: str) -> _Open:
+        return _Open(self, name)
+
+    def _enter(self, s: _Open):
+        if self._open:
+            self._open[-1].synced = False
+        if self.record is not None:
+            s.index = len(self.record.spans)
+            self.record.spans.append(None)
+        self._open.append(s)
+        s.t0 = time.time_ns()
+
+    def _exit(self, s: _Open):
+        s.t1 = time.time_ns()
+        self._open.pop()
+        if self._open:
+            self._open[-1].synced = False
+        if self.record is not None and s.index >= 0:
+            parent = self._open[-1].index if self._open else -1
+            self.record.spans[s.index] = Span(s.name, s.t0, s.t1, parent,
+                                              s.synced)
+        key = self.totals.get(s.name)
+        if key is not None:
+            self.stats[key] += (s.t1 - s.t0) / 1e9
+
+    def mark(self, name: str) -> int:
+        """A zero-length span now; returns its stamp (ns)."""
+        t = time.time_ns()
+        if self.record is not None:
+            parent = self._open[-1].index if self._open else -1
+            self.record.spans.append(Span(name, t, t, parent, False))
+        return t
+
+    def count(self, name: str, n: int):
+        if self.record is not None:
+            self.record.counts[name] = self.record.counts.get(name, 0) + n
+        key = self.totals.get(name)
+        if key is not None:
+            self.stats[key] += n
+
+    def synced(self):
+        if self._open:
+            self._open[-1].synced = True
+
+    @contextlib.contextmanager
+    def frame(self):
+        rec = self.record = FrameRecord()
+        try:
+            with self.span("frame"):
+                yield rec
+        finally:
+            self.record = None
+            self._open.clear()
+
+
+def span_seconds(spans) -> dict[str, float]:
+    """Seconds per span name, summed over a frame's spans."""
+    out: dict[str, float] = {}
+    for s in spans:
+        out[s.name] = out.get(s.name, 0.0) + (s.t1 - s.t0) / 1e9
+    return out
+
+
+def since_frame_start(times: dict, name: str) -> float | None:
+    """Seconds from a frame's start (its root span) to the first span or
+    mark called `name` in `frame_times[t]`; None where there is none."""
+    spans = times.get("spans") or []
+    hit = next((s for s in spans if s.name == name), None)
+    if hit is None:
+        return None
+    return (hit.t0 - spans[0].t0) / 1e9
 
 
 class RunLogger:
