@@ -103,8 +103,8 @@ from .selection import (find_earliest_keyframe, overlap_percents,
                         select_earliest_topk_base, select_topk_overlap,
                         select_visbased)
 from .track_cache import build_track_cache, build_track_cache_2c
-from .tracking import (TrackingConfig, init_track_state, probe_loss,
-                       track_frame, track_frame_cached)
+from .tracking import (GRAPHED, TrackingConfig, init_track_state,
+                       probe_loss, track_frame, track_frame_cached)
 
 # the spans that `frame_times[t]["timers"]` sums per frame, under the
 # names of the `stats` keys that sum them over the run: the boundary work,
@@ -906,6 +906,7 @@ class VTGaussianSLAM:
                         state.trans, self.cam, span_cap=bk["span_cap"],
                         max_pairs_per_tile=mpt, chunk=bk["chunk"],
                         tile_pad=self.tile_pad, select=self._bin_select)
+            replayed = GRAPHED.replays
             with trace.span("track.loop"):
                 state, im_h, d_h = self._track_cached_fn(
                     cache, state, frame, aux_mask, self.cam,
@@ -913,6 +914,7 @@ class VTGaussianSLAM:
                 hists.append((im_h, d_h))
                 self._sync()
             trace.count("track.iters", seg)
+            trace.count("track.graph_iters", GRAPHED.replays - replayed)
             if self._k_dense > 0:
                 # saturation at each tile's own class budget (padded rows
                 # have count 0)

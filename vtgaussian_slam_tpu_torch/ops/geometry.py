@@ -74,7 +74,9 @@ def pose_to_w2c(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     top = torch.cat([r, trans[..., :, None]], -1)
     bottom = torch.zeros(quat.shape[:-1] + (1, 4), dtype=quat.dtype,
                          device=quat.device)
-    bottom[..., 0, 3] = 1.0
+    # a fill on the device: assigning a Python float copies it from the
+    # host, which a CUDA graph cannot capture (the tracking loop's p2p)
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], -2)
 
 
@@ -90,7 +92,7 @@ def invert_se3(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     top = torch.cat([Rt, -(Rt @ t[..., None])], -1)
     bottom = torch.zeros_like(T[..., 3:4, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)      # on the device, as in pose_to_w2c
     return torch.cat([top, bottom], -2)
 
 

@@ -9,7 +9,9 @@ CUDA tensor builds what is missing.
 
 Every exported C function launches on the stream it is given, allocates
 nothing and returns `cudaGetLastError()`; `check` turns a non-zero code
-into an exception.
+into an exception. Each wrapper counts its launches through
+`count_launch`; a launch a CUDA graph captures counts on each replay
+(`CapturedLaunches`).
 """
 from __future__ import annotations
 
@@ -123,3 +125,44 @@ def stream_of(t) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
+
+
+_CAPTURES: list[dict] = []     # the tallies of the open graph captures
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel in its `launches` attribute,
+    where it runs now; where a CUDA graph captures it, in the tally of the
+    open `CapturedLaunches`, which counts it on each replay."""
+    import torch
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+    elif _CAPTURES:
+        tally = _CAPTURES[-1]
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+    else:
+        raise RuntimeError(f"{wrapper!r}: a kernel launch captured into a "
+                           f"CUDA graph outside `CapturedLaunches` would "
+                           f"go uncounted")
+
+
+class CapturedLaunches:
+    """The kernel launches a CUDA graph holds: capture inside `with`, then
+    `replay(graph)` replays it and adds its launches to each wrapper's
+    `launches`, as launching them one by one would."""
+
+    def __init__(self):
+        self.tally: dict = {}
+
+    def __enter__(self):
+        _CAPTURES.append(self.tally)
+        return self
+
+    def __exit__(self, *exc):
+        _CAPTURES.pop()
+        return False
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        for wrapper, n in self.tally.items():
+            wrapper.launches += n

@@ -112,7 +112,7 @@ def blend_forward(recs: torch.Tensor, counts: torch.Tensor, tiles_x: int,
                              recs.shape[2], tiles_x, int(tile_offset),
                              n_channels, out.data_ptr(), _build.stream_of(recs))
     _build.check(lib, err, "vtgs_blend_fwd launch")
-    blend_forward.launches += 1
+    _build.count_launch(blend_forward)
     return out
 
 
@@ -309,7 +309,7 @@ def blend_backward(recs: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
                              int(tile_offset), C, grad.data_ptr(),
                              _build.stream_of(recs))
     _build.check(lib, err, "vtgs_blend_bwd launch")
-    blend_backward.launches += 1
+    _build.count_launch(blend_backward)
     return grad
 
 

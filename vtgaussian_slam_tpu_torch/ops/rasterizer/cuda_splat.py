@@ -532,7 +532,7 @@ def splat_forward(slots8: torch.Tensor, R9: torch.Tensor, trans: torch.Tensor,
                              tiles_x, int(tile_offset), _ptr(out),
                              _build.stream_of(slots8))
     _build.check(lib, err, "vtgs_splat_fwd launch")
-    splat_forward.launches += 1
+    _build.count_launch(splat_forward)
     return out
 
 
@@ -557,7 +557,7 @@ def _splat_backward(name, wrapper, plain, out_shape, slots8, R9, trans, counts,
                              int(tile_offset), _ptr(res),
                              _build.stream_of(slots8))
     _build.check(lib, err, f"{name} launch")
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return res
 
 
