@@ -176,7 +176,14 @@ Phases (any failure raises and the exit code is non-zero):
      the `blend.cu` in DIR (another version of the source, its `walk.cuh`
      beside it, with this tree's C interface: the tile-id and tile-offset
      operands) on both of K4's inputs: whether the two outputs are equal
-     to the bit, the largest difference, and both times;
+     to the bit, the largest difference, and both times; then the
+     mapping-loss kernels (`ML`, csrc/maploss.cu, forward and backward)
+     on the newest keyframe cache's render and its keyframe: their loss,
+     im_loss, depth_loss and gradients, and the plain mapping branch's
+     (its PyTorch ops), each within the f32 rounding bound of the
+     branch's f64 values (tests/test_torch_map_loss.py), a repeated launch
+     equal to the bit, the times of forward + backward, of the forward
+     and of the plain branch, and the bound;
   3b. the device-busy share of the loops (`[busy]` lines): ten iterations
      each of the default tracking loop, the default mapping loop, the
      generic tracking loop and the replica boundary tracking loop with its
@@ -184,9 +191,9 @@ Phases (any failure raises and the exit code is non-zero):
      host clock alone and once under `torch.profiler`: the summed device
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
-  4. a `{"kernels": [...]}` line (launches: the sum over the engine runs,
-     phase 2e's evaluations and CLI runs and phases 2f-2h); the card line; and
-     as the
+  4. a `{"kernels": [...]}` line, K1-K6 and ML (launches: the sum over the
+     engine runs, phase 2e's evaluations and CLI runs and phases 2f-2h);
+     the card line; and as the
      last line
      `{"ok": true, "device": {...}}`.
 
@@ -1953,6 +1960,7 @@ def sharded_rank(rank, world, port, out_dir):
     import torch
     sys.path.insert(0, REPO)
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
+    from vtgaussian_slam_tpu_torch.ops import map_loss as ml
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
     from vtgaussian_slam_tpu_torch.parallel import engine as pe
@@ -1961,7 +1969,8 @@ def sharded_rank(rank, world, port, out_dir):
     try:
         wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
                     "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
-                    "K5": cb.blend_backward, "K6": cs.splat_backward_all}
+                    "K5": cb.blend_backward, "K6": cs.splat_backward_all,
+                    "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward}
         eng = VTGaussianSLAM(sharded_config(world), device="cuda:0")
         zeroed(wrappers)
         t0 = time.time()
@@ -2105,9 +2114,92 @@ def sharded_phase(wrappers):
         for k, v in json.loads(str(r["launches"])).items():
             launches[k] += v
     print(f"[{tag}] launches (both ranks) {launches}")
-    missing = [k for k in ("K1", "K2", "K3", "K4") if launches[k] <= 0]
+    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd")
+               if launches[k] <= 0]
     assert not missing, f"kernels never launched on the sharded path: {missing}"
     return dict(launches=launches, engine=eng1)
+
+
+def map_loss_row(r, frame, lcfg, launches, launches1):
+    """The mapping-loss kernels (csrc/maploss.cu: forward tiles, the
+    fixed-order reduction, the backward scale) on phase 3's mapping inputs
+    (the newest keyframe cache's render and its keyframe, 680x1200): loss,
+    im_loss, depth_loss, d im and d depth from the wrappers and from the
+    plain mapping branch of `loss_from_render` (its PyTorch ops, the
+    kernel's dispatch off), each held to the branch's f64 values within
+    the f32 rounding bound of tests/test_torch_map_loss.py; two launches
+    repeat bit for bit; then the time of forward + backward (CUDA events,
+    one call, median of 10; 20 back to back), the forward alone, the
+    plain branch's, and the bound. Returns the `kernels` row "ML"."""
+    import torch
+    from unittest import mock
+    from vtgaussian_slam_tpu_torch.core import losses
+    from vtgaussian_slam_tpu_torch.ops import map_loss as ml
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_map_loss as tml
+    assert losses.fused_mapping_loss(lcfg, r.im.device)
+    im = r.im.detach().requires_grad_(True)       # the strided plane views
+    d = r.depth.detach().requires_grad_(True)
+    rv = r._replace(im=im, depth=d)
+    w = (lcfg.im_weight, lcfg.depth_weight)
+
+    def kernel():
+        loss, il, dl = ml.map_loss(im, d, r.depth_sq, frame.color,
+                                   frame.depth, *w)
+        return (loss, il, dl, *torch.autograd.grad(loss, (im, d)))
+
+    def plain():
+        with mock.patch.object(losses, "fused_mapping_loss",
+                               lambda *a, **k: False):
+            out = losses.loss_from_render(rv, frame, lcfg, 0.5, False)
+        return (out.loss, out.im_loss, out.depth_loss,
+                *torch.autograd.grad(out.loss, (im, d)))
+
+    got, ref = kernel(), plain()
+    share_k = tml.within_rounding(got, rv, frame, "ML kernel", lcfg)
+    share_p = tml.within_rounding(ref, rv, frame, "ML plain", lcfg)
+    err = max(float((a.detach() - b.detach()).abs().max())
+              for a, b in zip(got, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+    v = [float(x.detach()) for x in (*got[:3], *ref[:3])]
+    print(f"[ML] mapping loss vs the plain branch at {tuple(im.shape)}: "
+          f"loss {v[0]:.8f} / {v[3]:.8f}, im_loss {v[1]:.8f} / {v[4]:.8f}, "
+          f"depth_loss {v[2]:.8f} / {v[5]:.8f}; max abs difference "
+          f"{err:.3e}; share of the f32 rounding bound: kernel "
+          f"{share_k:.4f}, plain {share_p:.4f} (ok at most 1)")
+    print(f"  ML: a repeated launch gives the same bits: {same}")
+    if not same:
+        raise AssertionError("ML is not deterministic")
+    ms = event_ms(kernel)
+    b2b_ms = event_ms(kernel, per=20)
+    fwd_ms = event_ms(lambda: ml.map_loss_forward(
+        im, d, r.depth_sq, frame.color, frame.depth, *w, True))
+    plain_ms = event_ms(plain)
+    # floats a pixel: forward 9 planes read (im, gt, depth, depth_sq, gt
+    # depth) and 4 written (the gradient numerators), the backward 4 read
+    # and 4 written; operations a pixel and channel: 8 separable blurs of
+    # 11 + 11 taps (a fused multiply-add each) and ~40 more
+    _, H, W = im.shape
+    bytes_moved = (9 + 4 + 4 + 4) * 4 * H * W
+    flops = (8 * 22 * 2 + 40) * 3 * H * W
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    print(f"  ML: forward + backward {ms:.4f} ms (one call through the "
+          f"wrappers and autograd, median; 20 calls back to back {b2b_ms:.4f}"
+          f" ms per call), forward alone {fwd_ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}; "
+          f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | "
+          f"launches on the engine paths "
+          f"{launches['ML']} forward, {launches['ML_bwd']} backward (slice "
+          f"{launches1['ML']} / {launches1['ML_bwd']})")
+    return {"name": "ML", "route": "cuda",
+            "source": "vtgaussian_slam_tpu_torch/csrc/maploss.cu",
+            "replaces": None, "launches": launches["ML"],
+            "launches_bwd": launches["ML_bwd"], "max_abs_err": err,
+            "ms": ms, "forward_ms": fwd_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main() -> int:
@@ -2134,6 +2226,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
 
+    from vtgaussian_slam_tpu_torch.ops import map_loss as ml
     from vtgaussian_slam_tpu_torch.ops.rasterizer import _build
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
@@ -2181,10 +2274,12 @@ def main() -> int:
           f"{engine.cam.width}, baseframe_every {engine.bfe}")
     wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
                 "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
-                "K5": cb.blend_backward, "K6": cs.splat_backward_all}
+                "K5": cb.blend_backward, "K6": cs.splat_backward_all,
+                "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward}
     launches1, times1, q1 = run_frames(engine, NUM_FRAMES, wrappers, valid0,
                                        "slice")
-    missing = [k for k in ("K1", "K2", "K3", "K4") if launches1[k] <= 0]
+    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd")
+               if launches1[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
 
     # ---- phase 2b: the generic route ----------------------------------
@@ -2789,6 +2884,9 @@ def main() -> int:
                 entry["launches"] = also["launches"]
             row.setdefault("other_inputs", []).append(entry)
         report.append(row)
+
+    report.append(map_loss_row(rm, kframe, engine._loss_cfg(False),
+                               launches, launches1))
 
     print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "
           f"K2/K1 {times['K2'] / times['K1']:.3f}, "

@@ -7,7 +7,9 @@ reference's mask stack: valid depth, optional outlier rejection at 50x the
 lower-middle median depth error, the tracking silhouette (with the Replica adaptive threshold sweep
 on a frame's first iteration), and an auxiliary visibility / far-depth
 mask. Tracking losses are sums; mapping uses mean L1 depth and
-0.8 L1 + 0.2 (1 - SSIM) colour.
+0.8 L1 + 0.2 (1 - SSIM) colour. On a card the mapping loss without outlier
+rejection or an auxiliary mask (every mapping caller's) is one kernel with
+its gradient (`ops/map_loss.py`); everything else is PyTorch ops.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
+from ..ops.map_loss import map_loss
 from ..ops.rasterizer.tiled import render_tiled, tile_records
 from ..ops.ssim import ssim
 
@@ -129,12 +132,29 @@ def compute_loss(params: GaussianParams, active: torch.Tensor,
     return loss_from_render(r, frame, cfg, sil_thres, is_first_iter, aux_mask)
 
 
+def fused_mapping_loss(cfg: LossConfig, device,
+                       aux_mask: torch.Tensor | None = None) -> bool:
+    """Whether `loss_from_render` takes the loss in the mapping-loss kernel
+    (`ops/map_loss.py`): the mapping branch, without outlier rejection or
+    an auxiliary mask, on a card."""
+    return (not cfg.tracking and not cfg.ignore_outlier_depth_loss
+            and aux_mask is None and torch.device(device).type == "cuda")
+
+
 def loss_from_render(r: RenderResult, frame: Frame, cfg: LossConfig,
                      sil_thres, is_first_iter: bool,
                      aux_mask: torch.Tensor | None = None) -> LossOutput:
     """Weighted masked losses given a render; gradients flow to r.im and
     r.depth."""
     gt_im, gt_depth = frame.color, frame.depth
+    sil_thres_out = torch.as_tensor(sil_thres, dtype=gt_im.dtype,
+                                    device=gt_im.device)
+    if fused_mapping_loss(cfg, gt_im.device, aux_mask):
+        loss, im_loss, depth_loss = map_loss(
+            r.im, r.depth, r.depth_sq, gt_im, gt_depth, cfg.im_weight,
+            cfg.depth_weight)
+        return LossOutput(loss=loss, im_loss=im_loss, depth_loss=depth_loss,
+                          sil_thres_out=sil_thres_out)
     uncertainty = (r.depth_sq - r.depth * r.depth).detach()
     nan_mask = (~torch.isnan(r.depth)) & (~torch.isnan(uncertainty))
     valid = gt_depth > 0
@@ -148,8 +168,6 @@ def loss_from_render(r: RenderResult, frame: Frame, cfg: LossConfig,
         mask = valid
     mask = mask & nan_mask
 
-    sil_thres_out = torch.as_tensor(sil_thres, dtype=gt_im.dtype,
-                                    device=gt_im.device)
     if cfg.tracking and cfg.use_sil_for_loss:
         if cfg.adaptive_sil and is_first_iter:
             sil_thres_out = _pick_sil_thres(r, frame)

@@ -30,6 +30,7 @@ import torch
 from ..models.gaussians import PARAM_KEYS, GaussianParams
 from ..models.optimizer import MAP_EPS, adam_init, adam_step
 from ..ops.camera import Camera
+from ..ops.map_loss import map_loss_forward
 from .losses import Frame, LossConfig, compute_loss, loss_from_render
 
 
@@ -56,11 +57,30 @@ class KeyframeBuffer(NamedTuple):
 
 
 def lrs8_of(lrs: dict, like: torch.Tensor) -> torch.Tensor:
-    """(1, 8) per-column lrs of the field table (zero on the means)."""
-    return torch.tensor(
-        [0.0, 0.0, 0.0, lrs.get("logit_opacities", 0.0),
-         lrs.get("log_scales", 0.0)] + [lrs.get("rgb_colors", 0.0)] * 3,
-        dtype=like.dtype, device=like.device)[None, :]
+    """(1, 8) per-column lrs of the field table (zero on the means), filled
+    on `like`'s device: a copy from the host would wait for the stream."""
+    out = like.new_zeros((1, 8))
+    for cols, name in ((slice(3, 4), "logit_opacities"),
+                       (slice(4, 5), "log_scales"),
+                       (slice(5, 8), "rgb_colors")):
+        out[:, cols].fill_(lrs.get(name, 0.0))
+    return out
+
+
+class FusedLosses:
+    """`iters`: the mapping iterations so far whose own loss (the global
+    term's apart) launched the mapping-loss kernel, read from its
+    wrapper's launch count (`ops/map_loss.map_loss_forward`); the engine's
+    `map.loss_fused` counter reads it around each mapping loop."""
+
+    def __init__(self):
+        self.iters = 0
+
+    def took(self, launches_before: int):
+        self.iters += map_loss_forward.launches - launches_before
+
+
+FUSED = FusedLosses()
 
 
 def _draw(i: int, count: int, draws, generator) -> int:
@@ -110,8 +130,10 @@ def map_frame(params: GaussianParams, active: torch.Tensor,
         frame = Frame(color=kf.colors[k], depth=kf.depths[k])
         vs = [x.requires_grad_(True) for x in (v.detach() for v in leaves)]
         p = GaussianParams(**frozen, **dict(zip(names, vs)))
+        n0 = map_loss_forward.launches
         out = compute_loss(p, active, kf.quats[k], kf.trans[k], frame, cam,
                            cfg.loss_cfg, 0.5, False)
+        FUSED.took(n0)
         loss = out.loss
         mode = _global_mode(cfg, kf, k, i)
         if mode is not None:
@@ -145,14 +167,16 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
     opt = adam_init([f8])
     hist = (torch.zeros((cfg.num_iters, 3), device=f8.device)
             if cfg.keep_hist else None)
-    half = torch.tensor(0.5, device=f8.device)
+    half = torch.full((), 0.5, device=f8.device)
     for i in range(cfg.num_iters):
         slot = _draw(i, kf.count, draws, generator)
         ring = slot_ids[slot]
         frame = Frame(color=kf.colors[ring], depth=kf.depths[ring])
         v8 = f8.detach().requires_grad_(True)
         r = render_local(v8, kfc[slot])
+        n0 = map_loss_forward.launches
         out = loss_from_render(r, frame, cfg.loss_cfg, half, False)
+        FUSED.took(n0)
         loss = out.loss
         mode = _global_mode(cfg, kf, ring, i)
         if mode is not None:

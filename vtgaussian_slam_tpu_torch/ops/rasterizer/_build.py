@@ -26,14 +26,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build"
-SOURCES = ("splat", "blend")
+SOURCES = ("splat", "blend", "maploss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> ctypes argument types (pointers and the stream as
 # c_void_p: a default int argument would cut a 64-bit pointer; a None
 # pointer is NULL, as the tile-id operand takes it)
@@ -48,6 +48,11 @@ SIGNATURES = {
     "blend": {
         "vtgs_blend_fwd": (_VP,) * 3 + (_I,) * 5 + (_VP, _VP),
         "vtgs_blend_bwd": (_VP,) * 5 + (_I,) * 5 + (_VP, _VP),
+    },
+    "maploss": {
+        "vtgs_map_loss_fwd": (_VP,) * 5 + (_I,) * 9 + (_F, _F) + (_VP,) * 9,
+        "vtgs_map_loss_bwd": (_VP, _VP, _F, _F, _VP, _VP, _I, _I, _VP, _VP,
+                              _VP),
     },
 }
 
