@@ -123,13 +123,6 @@ Phases (any failure raises and the exit code is non-zero):
         2e-4 once the depths are spread apart), and on tests/
         test_rasterizer.py's random scenes; `prune_gaussians` and
         `densify_split_clone` on those Gaussians give the CPU's counts;
-  2g. two-class binning: the room0 proxy as in phase 2 (5 frames) with
-     tpu.two_class_frac 0.25: the per-frame split, k_dense and the sparse
-     budget, the engine's probe readings and the probe's harm at the last
-     pose against single-class, the two-class map loop's [busy] line, and
-     the merged K1 render (tile-id operand) against the single-class K1
-     render to the bit on every tile the dense set covers (the uncovered
-     count printed);
   2h. the tile-sharded engine: two ranks spawned on the one card over gloo
      (two processes sharing one H100: their times are not a multi-GPU
      speed), the room0 proxy at full width with tpu.mesh_devices 2 and
@@ -152,9 +145,10 @@ Phases (any failure raises and the exit code is non-zero):
      on phase 2c's global binning (the frozen sections and the current
      one, at g_mpt) with the global term's loss cotangent, and K2 also on
      the track cache of phase 2c's last boundary frame; K1, K2 and K3 also
-     with the new operands: on phase 2g's dense and sparse classes (the
-     tile-id operand; the tracking and the mapping cache with their loss
-     cotangents) and on rank 1's tile shard of phase 2h's one-card state at
+     with the new operands: on half of the tracking and of the mapping
+     cache's tiles in a shuffled order and 8 rows of count 0 (the tile-id
+     operand, with the loss cotangents' rows; no engine path passes it)
+     and on rank 1's tile shard of phase 2h's one-card state at
      its nonzero tile_offset; each with that input's own time, bound and
      step counts (and launches, for the new operands'); K6, which no
      engine path launches, also runs through `splat_blend(grad_mode="all")` under autograd, held
@@ -192,7 +186,8 @@ Phases (any failure raises and the exit code is non-zero):
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
   4. a `{"kernels": [...]}` line, K1-K6 and ML (launches: the sum over the
-     engine runs, phase 2e's evaluations and CLI runs and phases 2f-2h);
+     engine runs, phase 2e's evaluations and CLI runs and phases 2f and
+     2h);
      the card line; and as the
      last line
      `{"ok": true, "device": {...}}`.
@@ -224,7 +219,6 @@ RESUME_FROM = 5       # phase 2c saves after frame 5; 2f-a resumes there
 PROGRESS_FRAMES = 3   # phase 2f-b
 PP_FRAMES = 6         # phase 2f-c: the ScanNet++ proxy
 DENSE_N, DENSE_HW = 20000, 128    # phase 2f-e
-TWO_CLASS_FRAC = 0.25                # phase 2g
 SHARDED_BFE, SHARDED_FRAMES, SHARDED_RANKS = 2, 4, 2   # phase 2h
 SHARDED_WORKDIR = os.path.join(REPO, "build", "chip_smoke_2h")
 SHARDED_TIMEOUT_S = 600
@@ -376,7 +370,7 @@ def run_frames(engine, n, wrappers, valid0, tag, train=contextlib.nullcontext):
     for t in range(n):
         with train():
             engine.process_frame(t)
-        mpt = engine.map_backend_kwargs["max_pairs_per_tile"]
+        mpt = engine.backend_kwargs["max_pairs_per_tile"]
         t0 = time.time()
         counts = budget_counts(engine, t, mpt)
         count_s += time.time() - t0
@@ -636,7 +630,7 @@ def run_boundaries(engine, n, wrappers, valid0, tag, n_sections):
                 refs[i] = [x.clone() for x in
                            section_tensors(engine.sections[i])]
         gc = engine._gcache
-        mpt = engine.map_backend_kwargs["max_pairs_per_tile"]
+        mpt = engine.backend_kwargs["max_pairs_per_tile"]
         t0 = time.time()
         counts = budget_counts(engine, t, mpt)
         count_s += time.time() - t0
@@ -1599,15 +1593,6 @@ def phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
     return {"launches": launches, "probe": probe}
 
 
-def class_accums(slots, counts, tids, merge, R9, trans, cam, tiles_x):
-    """K1 of each two-class class (tile-id operand) and their merge."""
-    import torch
-    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
-    accs = [cs.splat_forward(s, R9, trans, c, cam, tiles_x, i)
-            for s, c, i in zip(slots, counts, tids)]
-    return accs, torch.cat(accs)[merge]
-
-
 def loss_cotangent(accum, frame, cam, lcfg, tracking, radii=None):
     """The tracking (silhouette threshold 0.99, first iteration) or mapping
     loss's cotangent of a (T, 8, 256) accum, as the loops take it."""
@@ -1624,127 +1609,6 @@ def loss_cotangent(accum, frame, cam, lcfg, tracking, radii=None):
                            tracking)
     (g,) = torch.autograd.grad(out.loss, (acc_v,))
     return g.contiguous()
-
-
-def two_class_phase(wrappers, valid0):
-    """2g: the room0 proxy with tpu.two_class_frac for NUM_FRAMES frames:
-    the split, k_dense and the sparse budget, the probe's readings, the
-    two-class map loop's [busy] line, and the merged K1 render against the
-    single-class one to the bit wherever the dense set covers; returns the
-    launches and phase 3's inputs (each class's slots, counts, tile ids
-    and loss cotangent rows, for the tracking and the mapping cache)."""
-    import torch
-    from vtgaussian_slam_tpu_torch.core.map_cache import (pack_fields8,
-                                                          trunc_probe)
-    from vtgaussian_slam_tpu_torch.core.mapping import (KeyframeBuffer,
-                                                        MappingConfig,
-                                                        map_frame_binned)
-    from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
-    from vtgaussian_slam_tpu_torch.core.track_cache import (
-        build_track_cache, build_track_cache_2c)
-    from vtgaussian_slam_tpu_torch.ops import geometry as geo
-    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
-    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import \
-        gather_channels
-    tag = "two-class"
-    config = room0_proxy_config()
-    config["tpu"]["two_class_frac"] = TWO_CLASS_FRAC
-    config["tracking"]["base1_num_iters"] = TRACK_ITERS
-    config["mapping"]["num_iters"] = MAP_ITERS
-    eng = VTGaussianSLAM(config, device="cuda")
-    cam = eng.cam
-    tiles_x = -(-cam.width // 16)
-    n_tiles = tiles_x * (-(-cam.height // 16))
-    assert eng._k_dense > 0, eng._k_dense
-    launches, _, _ = run_frames(eng, NUM_FRAMES, wrappers, valid0, tag)
-    missing = [k for k in ("K1", "K2", "K3", "K4") if launches[k] <= 0]
-    assert not missing, f"kernels never launched on the two-class path: {missing}"
-    bk = eng.backend_kwargs
-    mpt = bk["max_pairs_per_tile"]
-    mpt_s = max(128, mpt // eng._two_class_div)
-    probes = "; ".join(f"mpt {m} harm {h:.5f} -> boost {b}"
-                       for m, h, b in eng.probe_log) or "none read"
-    print(f"[{tag}] tpu.two_class_frac {eng._two_class_frac}: k_dense "
-          f"{eng._k_dense} of {n_tiles} tiles at mpt {mpt}, the rest at mpt_s "
-          f"{mpt_s} (mpt // {eng._two_class_div}); the engine's probe "
-          f"readings (the two-class point against single-class 4 mpt): "
-          f"{probes}")
-    t = NUM_FRAMES - 1
-    sec = eng.sections[0]
-    active = sec.active_mask()
-    quat, trans = eng.traj.quats[t].clone(), eng.traj.trans[t].clone()
-    harm2 = float(trunc_probe(sec.params, active, quat, trans, cam,
-                              span_cap=bk["span_cap"], mpt=mpt,
-                              select=eng._bin_select, k_dense=eng._k_dense,
-                              sparse_div=eng._two_class_div))
-    harm1 = float(trunc_probe(sec.params, active, quat, trans, cam,
-                              span_cap=bk["span_cap"], mpt=mpt,
-                              select=eng._bin_select))
-    print(f"[{tag}] truncation harm at frame {t}'s pose: two-class "
-          f"{harm2:.5f}, single-class at mpt {mpt} {harm1:.5f}")
-    mp_cfg = config["mapping"]
-    mcfg = MappingConfig(
-        num_iters=BUSY_ITERS,
-        lrs=tuple(sorted((k, float(v)) for k, v in mp_cfg["lrs"].items()
-                         if k not in ("cam_unnorm_rots", "cam_trans"))),
-        loss_cfg=eng._loss_cfg(False), use_global=False)
-    kf = KeyframeBuffer(colors=eng.ring_colors, depths=eng.ring_depths,
-                        count=len(eng.map_store.ring_of_slot))
-    busy_line("two-class map", lambda: map_frame_binned(
-        sec.params, kf, eng.map_store.slots, list(eng.map_store.ring_of_slot),
-        cam, mcfg, generator=eng.map_generator))
-
-    # the tracking cache at the committed pose: both classes and the
-    # single-class cache at mpt
-    R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
-    kw = dict(span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
-              select=eng._bin_select)
-    tc2 = build_track_cache_2c(sec.params, active, quat, trans, cam,
-                               mpt_sparse=mpt_s, k_dense=eng._k_dense, **kw)
-    tc1 = build_track_cache(sec.params, active, quat, trans, cam,
-                            chunk=bk["chunk"], **kw)
-    slots_t = (tc2.slots_d, tc2.slots_s)
-    counts_t = (tc2.counts_d, tc2.counts_s)
-    tids_t = (tc2.tids_d, tc2.tids_s)
-    accs_t, merged = class_accums(slots_t, counts_t, tids_t, tc2.merge, R9,
-                                  trans, cam, tiles_x)
-    single = cs.splat_forward(tc1.slots8, R9, trans, tc1.counts, cam, tiles_x)
-    # a sparse tile with more than mpt_s pairs is binned at mpt_s, not mpt
-    sparse = torch.zeros(n_tiles, dtype=torch.bool, device=merged.device)
-    sparse[tc2.tids_s[tc2.counts_s > 0].long()] = True
-    uncovered = sparse & (tc1.counts[:n_tiles] > mpt_s)
-    same = torch.equal(merged[~uncovered], single[:n_tiles][~uncovered])
-    print(f"[{tag}] merged K1 render (dense {tc2.slots_d.shape[0]} rows x "
-          f"{tc2.slots_d.shape[2]} slots, sparse {tc2.slots_s.shape[0]} x "
-          f"{tc2.slots_s.shape[2]}) against single-class K1 at mpt {mpt}: "
-          f"uncovered tiles (sparse, over mpt_s) {int(uncovered.sum())}; "
-          f"equal to the bit on the {int((~uncovered).sum())} covered "
-          f"tiles: {same}")
-    if not same:
-        raise AssertionError(f"[{tag}] the two-class split moved a covered "
-                             f"tile's render")
-    frame = eng._stage(*eng.dataset[t][:2])
-    g = loss_cotangent(merged, frame, cam, eng._loss_cfg(True), True,
-                       tc2.radii)
-    g_t = [g[i.long()].contiguous() for i in tids_t]
-
-    # the newest mapping cache, both classes, with its mapping cotangent
-    kfc = eng.map_store.slots[-1]
-    ring = eng.map_store.ring_of_slot[-1]
-    kR9 = geo.quat_to_rotmat(geo.normalize(kfc.quat)).reshape(9)
-    f8 = pack_fields8(sec.params)
-    slots_m = (gather_channels(f8, kfc.tab_d), gather_channels(f8, kfc.tab_s))
-    counts_m = (kfc.counts_d, kfc.counts_s)
-    tids_m = (kfc.tids_d, kfc.tids_s)
-    accs_m, merged_m = class_accums(slots_m, counts_m, tids_m, kfc.merge, kR9,
-                                    kfc.trans, cam, tiles_x)
-    kframe = type(frame)(color=eng.ring_colors[ring],
-                         depth=eng.ring_depths[ring])
-    g = loss_cotangent(merged_m, kframe, cam, eng._loss_cfg(False), False)
-    g_m = [g[i.long()].contiguous() for i in tids_m]
-    return dict(launches=launches, cam=cam, R9=R9, trans=trans,
-                track=(slots_t, counts_t, tids_t, accs_t, g_t),
-                map=(slots_m, counts_m, tids_m, accs_m, g_m, kR9, kfc.trans))
 
 
 def splat_inputs(tag, slots, counts, R9, trans, cam, tiles_x, accum, g,
@@ -1792,6 +1656,29 @@ def splat_inputs(tag, slots, counts, R9, trans, cam, tiles_x, accum, g,
                                     + 2 * T * 8 * 256 * 4 + T * M * 8 * 4))}
 
 
+def tile_subset_inputs(tag, slots, counts, R9, trans, cam, tiles_x, g):
+    """`splat_inputs` for rows that hold a subset of the image's tiles, as
+    the tile-id operand takes them: half of the tiles of `slots` in a
+    shuffled order, then 8 rows of count 0 at tile 0, with the cotangent
+    rows of their tiles. No engine path passes tile ids: launches 0."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
+    n_tiles = counts.shape[0]
+    perm = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(0))
+    ids = torch.cat([perm[:n_tiles // 2], torch.zeros(8, dtype=torch.long)]
+                    ).to(slots.device)
+    sub_counts = counts[ids].clone()
+    sub_counts[-8:] = 0
+    tids = ids.to(torch.int32)
+    sub = slots[ids].contiguous()
+    acc = cs.splat_forward(sub, R9, trans, sub_counts, cam, tiles_x, tids)
+    return splat_inputs(
+        f"{tag}: {n_tiles // 2} of its {n_tiles} tiles shuffled and 8 rows "
+        f"of count 0, tile ids", sub, sub_counts, R9, trans, cam, tiles_x,
+        acc, g[ids].contiguous(), dict.fromkeys(("K1", "K2", "K3"), 0),
+        tile_ids=tids)
+
+
 def shard_inputs(eng, launches, cam, tiles_x):
     """Rank 1's tile shard of the last frame of phase 2h's one-card run, as
     the sharded loops hand it to the kernels: the tracking cache and the
@@ -1819,9 +1706,9 @@ def shard_inputs(eng, launches, cam, tiles_x):
                            chunk=bk["chunk"], tile_pad=pad,
                            select=eng._bin_select)
     kc = build_kf_cache(sec.params, active, q, tr, cam,
-                        span_cap=eng.map_backend_kwargs["span_cap"],
-                        max_pairs_per_tile=eng.map_backend_kwargs[
-                            "max_pairs_per_tile"], tile_pad=pad,
+                        span_cap=bk["span_cap"],
+                        max_pairs_per_tile=bk["max_pairs_per_tile"],
+                        tile_pad=pad,
                         select=eng._bin_select)
     out = []
     for slots, counts, lcfg, tracking in (
@@ -2444,10 +2331,6 @@ def main() -> int:
     f = phase_2f(engine3, config3, params_ls3, refs3, bk_train3, bk_eval3,
                  wrappers)
 
-    # ---- phase 2g: two-class binning ------------------------------------
-    t0 = time.time()
-    g2 = two_class_phase(wrappers, valid0)
-    print(f"[2g] {time.time() - t0:.1f} s")
     # ---- phase 2h: the tile-sharded engine, two ranks on the card -------
     t0 = time.time()
     h2 = sharded_phase(wrappers)
@@ -2455,15 +2338,15 @@ def main() -> int:
 
     runs = (launches1, launches2, launches_w2, launches3, launches4,
             launches_e1, launches_e2, *cli_runs, *f["launches"].values(),
-            g2["launches"], h2["launches"])
+            h2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in wrappers}
     print(f"[launches] slice {launches1}; generic route {launches2}; "
           f"phase 2b-w2 {launches_w2}; boundaries {launches3}; generic "
           f"boundary {launches4}; phase 2c "
           f"eval at the training budget {launches_e1}, at the eval_mode "
           f"budget {launches_e2}; CLI smoke, medium, medium eval_mode x2 "
-          f"{cli_runs}; phase 2f {f['launches']}; phase 2g (two-class) "
-          f"{g2['launches']}; phase 2h (sharded, both ranks) "
+          f"{cli_runs}; phase 2f {f['launches']}; phase 2h (sharded, both "
+          f"ranks) "
           f"{h2['launches']}; K6 launches on the engine paths: "
           f"{launches['K6']} (no engine path calls splat_blend's \"all\" "
           f"mode)")
@@ -2599,20 +2482,13 @@ def main() -> int:
     cp_b = cs.cp_vector(R9b, tr_b, cam)
     T_b = slots_b.shape[0]
 
-    # K1-K3 with the new operands: phase 2g's classes (tile ids) and rank
-    # 1's tile shard of phase 2h's one-card state (tile offset)
-    slots_t2, counts_t2, tids_t2, accs_t2, g_t2 = g2["track"]
-    slots_m2, counts_m2, tids_m2, accs_m2, g_m2, kR9_2, ktr_2 = g2["map"]
-    tr2 = [splat_inputs(f"two-class {c} rows (phase 2g tracking cache, "
-                        f"tile ids)", slots_t2[i], counts_t2[i], g2["R9"],
-                        g2["trans"], cam, tiles_x, accs_t2[i], g_t2[i],
-                        g2["launches"], tile_ids=tids_t2[i])
-           for i, c in enumerate(("dense", "sparse"))]
-    mp2 = [splat_inputs(f"two-class {c} rows (phase 2g mapping cache, "
-                        f"tile ids)", slots_m2[i], counts_m2[i], kR9_2, ktr_2,
-                        cam, tiles_x, accs_m2[i], g_m2[i], g2["launches"],
-                        tile_ids=tids_m2[i])
-           for i, c in enumerate(("dense", "sparse"))]
+    # K1-K3 with the new operands: a shuffled tile subset of the tracking
+    # and the mapping cache (tile ids) and rank 1's tile shard of phase
+    # 2h's one-card state (tile offset)
+    sub_t = tile_subset_inputs("track cache", slots_t, counts_t, R9, trans,
+                               cam, tiles_x, g_t)
+    sub_m = tile_subset_inputs("mapping cache", slots_m, kfc.counts, kR9,
+                               kfc.trans, cam, tiles_x, g_m)
     sh_t, sh_m = shard_inputs(h2["engine"], h2["launches"], cam, tiles_x)
 
     cp_t = cs.cp_vector(R9, trans, cam)
@@ -2678,7 +2554,7 @@ def main() -> int:
                 plain=lambda ids: cs.splat_forward_plain(
                     slots_g[ids], gc3.counts[ids], cp_g, tiles_x, ids),
                 bytes=lambda s: s * 8 * 4 + T_g * 4 + T_g * 8 * 256 * 4,
-                work=lambda: work_g), tr2[0]["K1"], tr2[1]["K1"],
+                work=lambda: work_g), sub_t["K1"], sub_m["K1"],
                 sh_t["K1"]]),
         "K2": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
@@ -2703,7 +2579,7 @@ def main() -> int:
                 bytes=lambda s: (s * 8 * 4 + T_b * 4 + 2 * T_b * 8 * 256 * 4
                                  + T_b * 12 * 4),
                 work=lambda: splat_work(slots_b, counts_b, cp_b, tiles_x)),
-                tr2[0]["K2"], tr2[1]["K2"], sh_t["K2"]]),
+                sub_t["K2"], sh_t["K2"]]),
         "K3": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/splat.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_splat.py:641",
@@ -2727,8 +2603,7 @@ def main() -> int:
                     accum_g[ids], g_g[ids], ids),
                 bytes=lambda s: (s * 8 * 4 + T_g * 4 + 2 * T_g * 8 * 256 * 4
                                  + T_g * M_g * 8 * 4),
-                work=lambda: work_g), mp2[0]["K3"], mp2[1]["K3"],
-                sh_m["K3"]]),
+                work=lambda: work_g), sub_m["K3"], sh_m["K3"]]),
         "K4": dict(
             route="cuda", source="vtgaussian_slam_tpu_torch/csrc/blend.cu",
             replaces="vtgaussian_slam_tpu/ops/rasterizer/pallas_blend.py:246",
@@ -2846,8 +2721,8 @@ def main() -> int:
               f"{launches4[name]}, phase 2e evaluations "
               f"{launches_e1[name] + launches_e2[name]}, CLI runs "
               f"{sum(r[name] for r in cli_runs)}, phase 2f "
-              f"{sum(r[name] for r in f['launches'].values())}, phase 2g "
-              f"{g2['launches'][name]}, phase 2h {h2['launches'][name]})")
+              f"{sum(r[name] for r in f['launches'].values())}, phase 2h "
+              f"{h2['launches'][name]})")
         if name != "K6":    # K6 walks K2's inputs
             steps_line(name, work, sub_chunks=name not in ("K1", "K4"))
         row = {"name": name, "route": sp["route"],

@@ -15,7 +15,6 @@ from torch_port_util import (POSE_Q, POSE_T, TILES_X, assert_close_scaled, np_,
                              torch_params)
 from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
-from vtgaussian_slam_tpu_torch.ops.rasterizer import binning as B
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as CB
 from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as CS
 from vtgaussian_slam_tpu_torch.utils.common import resolve_device
@@ -265,8 +264,8 @@ def _tile_id_case(how):
     """The track-cache case (9 tiles) with its rows rearranged: "tids", the
     rows permuted with their image tiles in the tile-id operand; "offset",
     rows 4-8 alone at tile_offset 4; both with 3 padded rows appended
-    (count 0, tile 0, slots and cotangent rows of row 0), as two-class
-    tables and tile-sharded caches pad. Returns (slots, counts, tids,
+    (count 0, tile 0, slots and cotangent rows of row 0), as tile-sharded
+    caches pad. Returns (slots, counts, tids,
     offset, R9, t, g)."""
     slots, counts, R9, t, g = _case("cpu", seed=2)
     if how == "tids":
@@ -354,47 +353,6 @@ def test_blend_kernels_with_tile_ids_and_offset_match_plain(card, how):
         assert_close_scaled(k5[..., col], r5[..., col], 1e-3, f"col {col}")
     np.testing.assert_array_equal(np_(k5)[-1], 0.0)
     assert bool(k5[0].abs().sum() > 0)
-
-
-@pytest.mark.cuda
-def test_two_class_forward_equals_single_class_bitwise(card):
-    """With the dense set covering every tile over the sparse budget, the
-    merged two-class K1 render (tile-id operand) equals the single-class
-    render at the dense budget to the bit: the kernel walks only a tile's
-    count, whatever the table width. The same for the tracking cache."""
-    from torch_port_util import crowded_scene_np
-    from vtgaussian_slam_tpu_torch.core import map_cache as MC
-    from vtgaussian_slam_tpu_torch.core import track_cache as TC
-    from vtgaussian_slam_tpu_torch.ops.camera import Camera
-    cam = Camera(height=48, width=64, fx=50.0, fy=50.0, cx=32.0, cy=24.0)
-    p = torch_params(crowded_scene_np(900, 7))
-    p = type(p)(*[x.to(card) for x in p.tensors()])
-    act = torch.ones(p.means3d.shape[0], dtype=torch.bool, device=card)
-    q = torch.tensor([0.9998, 0.01, -0.012, 0.008], device=card)
-    t = torch.tensor([0.004, -0.003, 0.002], device=card)
-    kw = dict(span_cap=2, max_pairs_per_tile=256, select="importance")
-    two = MC.build_kf_cache_2c(p, act, q, t, cam, mpt_sparse=128, k_dense=8,
-                               **kw)
-    one = MC.build_kf_cache(p, act, q, t, cam, **kw)
-    full = MC.build_kf_cache(p, act, q, t, cam, **dict(kw,
-                                                       max_pairs_per_tile=4096))
-    assert int((full.counts > 128).sum()) <= 8, "the dense set covers"
-    f8 = MC.pack_fields8(p)
-    R9 = geo.quat_to_rotmat(geo.normalize(q)).reshape(9)
-    n1 = CS.splat_forward.launches
-    merged = MC.splat_forward_2c(f8, two, R9, cam)[2]
-    assert CS.splat_forward.launches == n1 + 2
-    single = CS.splat_forward(B.gather_channels(f8, one.tab), R9, t,
-                              one.counts, cam, 4)
-    assert torch.equal(merged, single)
-    tc2 = TC.build_track_cache_2c(p, act, q, t, cam, mpt_sparse=128,
-                                  k_dense=8, **kw)
-    tc1 = TC.build_track_cache(p, act, q, t, cam, **kw)
-    q1 = q + torch.tensor([0.0, 0.002, -0.001, 0.001], device=card)
-    r2 = TC.render_cached_2c(tc2, q1, t, cam)
-    r1 = TC.render_cached(tc1, q1, t, cam)
-    for a, b in zip(r1[:4], r2[:4]):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -300,8 +300,8 @@ def _stub(port: bool, boost=1):
     s.sections = [types.SimpleNamespace(n_active=3000)]   # mpt 512 x boost
     kw = dict(span_cap=2, max_pairs_per_tile=256, chunk=128)
     if port:
-        s.backend_kwargs, s.map_backend_kwargs = dict(kw), dict(kw)
-    else:
+        s.backend_kwargs = dict(kw)
+    else:   # the JAX engine keeps a second budget for mapping
         s.backend_kwargs = s.map_backend_kwargs = tuple(sorted(kw.items()))
     return s
 

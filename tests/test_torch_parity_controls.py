@@ -38,16 +38,13 @@ spread (test_torch_scannetpp.assert_histories_within_spread).
 
 Splat and blend forwards held to the exact value of the plain walk
 (torch_port_util.assert_splat_within_rounding /
-assert_blend_within_rounding: the grouped rehearsals of K1 and K4, and
-test_torch_two_class's single-class rows): a 1e-4 scale of the grouped
-outputs, and of the weights of a walk wider than the sparse budget, must
-fail them."""
+assert_blend_within_rounding: the grouped rehearsals of K1 and K4): a
+1e-4 scale of the grouped outputs must fail them."""
 import pytest
 import torch
 
 import test_torch_p2p as P2P
 import test_torch_scannetpp as SNPP
-import test_torch_two_class as TWO
 import test_torch_walk_boxes as WB
 import test_torch_truncation_parity as TR
 from test_torch_boundaries import _port_run
@@ -204,10 +201,10 @@ def _keep_last_pairs_by_depth(mp):
     instead of the first (the prefix)."""
     windows = TB._windows
 
-    def faulty(ps, tids, mpt, select):
+    def faulty(ps, mpt, select):
         if select == "depth":
             ps = dict(ps, start=torch.maximum(ps["start"], ps["end"] - mpt))
-        return windows(ps, tids, mpt, select)
+        return windows(ps, mpt, select)
 
     mp.setattr(TB, "_windows", faulty)
 
@@ -384,26 +381,4 @@ def test_grouped_blend_fault_fails_the_rounding_check():
     with pytest.raises(AssertionError, match="f32 rounding bound") as err:
         assert_blend_within_rounding(got, recs, counts, WB.TILES_X, 8,
                                      "grouped")
-    print(str(err.value).splitlines()[0])
-
-
-def test_width_dependent_splat_fault_fails_the_single_class_check():
-    """test_torch_two_class's binned case with the plain K1's weights x (1
-    + 1e-4) on tables wider than the sparse budget: the dense rows and the
-    MPT_D render move together, the sparse rows (MPT_S wide) do not."""
-    walk = CS._walk
-
-    def faulty(slots8, *args):
-        w = walk(slots8, *args)
-        if slots8.shape[2] > TWO.MPT_S:
-            w = dict(w, weight=w["weight"] * (1 + 1e-4))
-        return w
-
-    p, _, _, k = TWO.case.__wrapped__()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(CS, "_walk", faulty)
-        rows = TWO.binned_rows(p, TWO.kf_cache_2c(p, k))
-        with pytest.raises(AssertionError, match="merged channels 0-5"
-                           ) as err:
-            TWO.assert_single_class_rows(*rows)
     print(str(err.value).splitlines()[0])

@@ -11,14 +11,18 @@ against the direct sums of `_backward_sums`: each sum within 1e-5 of its
 largest |value| (the split leaves ~2^-22 of each product; the moment
 expansion cancels at most a few hundred times that), and the gradients
 after the chain within 1e-3 of their largest entry, the tolerance of the
-kernels' card tests."""
+kernels' card tests.
+
+Beside them, the rows of a tile subset (the tile-id operand): a padded row
+(count 0, tile 0) under a nonzero cotangent row gets exact zeros from the
+K2 and K3 plain versions."""
 import numpy as np
 import pytest
 import torch
 
 from torch_port_util import (POSE_Q, POSE_T, TILES_X, assert_close_scaled,
-                             random_tile_slots, scene_np, slots_at, torch_cam,
-                             torch_params)
+                             np_, random_tile_slots, scene_np, slots_at,
+                             torch_cam, torch_params)
 from vtgaussian_slam_tpu_torch.core.track_cache import build_track_cache
 from vtgaussian_slam_tpu_torch.ops import geometry as geo
 from vtgaussian_slam_tpu_torch.ops.camera import Camera
@@ -136,3 +140,28 @@ def test_gradients_from_moment_sums(case):
     for row in range(8):
         assert_close_scaled(got[:, row], ref[:, row], CHAIN_RTOL,
                             f"K6 row {row}")
+
+
+def test_padded_rows_backward_is_zero():
+    """A padded row (count 0, tile 0) gets the cotangent of a real tile's
+    row (g[tids]); K2 and K3 must give it exact zeros."""
+    H, W, fx, tiles_x = 48, 64, 50.0, 4
+    rng = np.random.default_rng(4)
+    slots = torch.as_tensor(random_tile_slots([0, 3, 0, 0], tiles_x, 128,
+                                              seed=9, fx=fx, fy=fx, cx=W / 2,
+                                              cy=H / 2))
+    counts = torch.tensor([128, 100, 0, 0], dtype=torch.int32)
+    tids = torch.tensor([0, 3, 0, 0], dtype=torch.int32)
+    R9, t = torch.eye(3).reshape(9), torch.zeros(3)
+    cam = Camera(height=H, width=W, fx=fx, fy=fx, cx=W / 2, cy=H / 2)
+    out = CS.splat_forward(slots, R9, t, counts, cam, tiles_x, tids)
+    np.testing.assert_array_equal(np_(out[2:, :6]), 0.0)
+    g = torch.as_tensor(rng.standard_normal((4, 8, 256)).astype(np.float32))
+    g[2:] = g[0]
+    pose = CS.splat_backward_pose(slots, R9, t, counts, out, g, cam, tiles_x,
+                                  tids)
+    rows = CS.splat_backward_vals_rows(slots, R9, t, counts, out, g, cam,
+                                       tiles_x, tids)
+    assert bool(pose[0].abs().sum() > 0) and bool(rows[0].abs().sum() > 0)
+    np.testing.assert_array_equal(np_(pose[2:]), 0.0)
+    np.testing.assert_array_equal(np_(rows[2:]), 0.0)

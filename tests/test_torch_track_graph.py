@@ -7,9 +7,8 @@ float; a call split 1+1+1+rest equals the whole call; only the
 single-card cached renderer on a card, for two iterations or more, engages
 the graph; and a launch captured into a graph counts on each replay. Card
 (marked `cuda`): on room0-shaped inputs (680 x 1200, 80 iterations) the
-graphed `track_frame_cached` equals the eager loop to the bit, for the
-one-class cache with either metric, with outlier rejection, and for the
-two-class cache, and the K1 / K2 launch counters count what the eager
+graphed `track_frame_cached` equals the eager loop to the bit, with
+either metric and with outlier rejection, and the K1 / K2 launch counters count what the eager
 loop counts and the profiler sees run.
 
 This file imports no JAX: on the card,
@@ -26,11 +25,8 @@ from vtgaussian_slam_tpu_torch.core.losses import (Frame, LossConfig,
                                                    render_slam)
 from vtgaussian_slam_tpu_torch.core.p2p import (make_p2p_target,
                                                 point2plane_metric)
-from vtgaussian_slam_tpu_torch.core.track_cache import (TrackCache2C,
-                                                        build_track_cache,
-                                                        build_track_cache_2c,
-                                                        render_cached,
-                                                        render_cached_2c)
+from vtgaussian_slam_tpu_torch.core.track_cache import (build_track_cache,
+                                                        render_cached)
 from vtgaussian_slam_tpu_torch.core.tracking import (TrackingConfig,
                                                      TrackState,
                                                      init_track_state,
@@ -297,7 +293,7 @@ ROOM0 = Camera(height=680, width=1200, fx=600.0, fy=600.0, cx=599.5,
                cy=339.5)
 
 
-def room0_case(dev, two_class=False, n=400_000, seed=0):
+def room0_case(dev, n=400_000, seed=0):
     """Replica room0's camera over n isotropic Gaussians filling its view
     at 1-5 m; the frame rendered at a pose 1 cm and ~0.3 deg from the
     start pose, the frozen cache at the start at mpt 512 (span cap 2), and
@@ -330,13 +326,8 @@ def room0_case(dev, two_class=False, n=400_000, seed=0):
     K = torch.as_tensor(cam.intrinsics, device=dev)
     target = make_p2p_target(r2.depth, K,
                              geo.pose_to_w2c(q_gt, t_gt + 0.02))
-    if two_class:
-        cache = build_track_cache_2c(prm, active, q0, t0, cam, span_cap=2,
-                                     max_pairs_per_tile=512, mpt_sparse=128,
-                                     k_dense=808)
-    else:
-        cache = build_track_cache(prm, active, q0, t0, cam, span_cap=2,
-                                  max_pairs_per_tile=512)
+    cache = build_track_cache(prm, active, q0, t0, cam, span_cap=2,
+                              max_pairs_per_tile=512)
     return dict(cam=cam, q0=q0, t0=t0, frame=frame, cache=cache,
                 target=target)
 
@@ -379,11 +370,9 @@ def run_both(c, cfg, count0=0):
                 torch.cuda.synchronize()
             out["profiled"] = k1_k2_run(prof)
         else:
-            rend = (render_cached_2c if isinstance(c["cache"], TrackCache2C)
-                    else render_cached)
-            res = track_loop(lambda q, t: rend(c["cache"], q, t, c["cam"]),
-                             st, c["frame"], None, cfg, c["target"],
-                             c["cam"])
+            res = track_loop(
+                lambda q, t: render_cached(c["cache"], q, t, c["cam"]),
+                st, c["frame"], None, cfg, c["target"], c["cam"])
         torch.cuda.synchronize()
         out[how] = (res, (CS.splat_forward.launches - n1[0],
                           CS.splat_backward_pose.launches - n1[1]),
@@ -426,16 +415,6 @@ def test_graphed_loop_without_streams_and_from_a_split(card):
     out = run_both(c, tcfg(77), count0=3)
     assert_same(out["graphed"][0], out["eager"][0], "from count 3")
     assert out["graphed"][2] == 76
-
-
-@pytest.mark.cuda
-def test_graphed_two_class_loop_equals_the_eager_loop(card):
-    c = room0_case(card, two_class=True, seed=2)
-    out = run_both(c, tcfg(80))
-    assert_same(out["graphed"][0], out["eager"][0], "two-class")
-    # two K1 and two K2 launches an iteration, graphed or not
-    assert out["graphed"][1] == out["eager"][1] == (160, 160)
-    assert_seen_to_run(out["profiled"], out["graphed"][1])
 
 
 @pytest.mark.cuda

@@ -41,15 +41,14 @@ def spawn_group(fn, world: int, args: tuple, timeout_s: float = 300.0):
             p.join(timeout=10)
 
 
-def engine_config(workdir, mesh_devices: int = 1,
-                  two_class_frac: float = 0.0):
+def engine_config(workdir, mesh_devices: int = 1):
     """The smoke config at 40 x 48 with 3 iterations per loop,
     baseframe_every 2 (frame 2 is a boundary, frame 3 maps with the global
     term), on the cached tracking and binned mapping routes."""
     cfg = smoke_config(workdir, frames=8, height=H, width=W, iters=3,
                        baseframe_every=2, use_wandb=False)
     cfg["tpu"].update(map_binned=True, track_cache=True, prefetch=0,
-                      mesh_devices=mesh_devices, two_class_frac=two_class_frac)
+                      mesh_devices=mesh_devices)
     return cfg
 
 
@@ -173,20 +172,18 @@ def run_render_and_steps(inp: dict, group=None) -> dict:
     return out
 
 
-def run_engine(workdir, mesh_devices: int, two_class_frac: float = 0.0):
-    """ENGINE_FRAMES frames of the engine on the CPU: the trajectory, the
-    export and k_dense."""
+def run_engine(workdir, mesh_devices: int):
+    """ENGINE_FRAMES frames of the engine on the CPU: the trajectory and
+    the export."""
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
-    eng = VTGaussianSLAM(engine_config(workdir, mesh_devices, two_class_frac),
-                         device="cpu")
+    eng = VTGaussianSLAM(engine_config(workdir, mesh_devices), device="cpu")
     try:
         eng.run(ENGINE_FRAMES)
     finally:
         eng.close()
     assert len(eng.sections) == 2 and eng.fixed_section_ids is not None
     out = dict(quats=eng.traj.quats[:ENGINE_FRAMES].numpy(),
-               trans=eng.traj.trans[:ENGINE_FRAMES].numpy(),
-               k_dense=np.array(eng._k_dense))
+               trans=eng.traj.trans[:ENGINE_FRAMES].numpy())
     for i, sec in enumerate(eng.export_params_ls()):
         for k, v in sec.items():
             out[f"sec{i}_{k}"] = v
@@ -208,9 +205,8 @@ def rank_main(rank: int, world: int, port: int, run_dir: str):
             out[f"loops_{k}"] = v
         for k, v in run_render_and_steps(inp, group).items():
             out[f"render_{k}"] = v
-        # two-class binning asked for, and forced off on the group
-        for k, v in run_engine(os.path.join(run_dir, f"engine{rank}"), world,
-                               two_class_frac=0.25).items():
+        for k, v in run_engine(os.path.join(run_dir, f"engine{rank}"),
+                               world).items():
             out[f"engine_{k}"] = v
         try:
             PE.make_mesh(world + 1)

@@ -3,12 +3,27 @@
 The port's own copy of `vtgaussian_slam_tpu/core/config.py`: scene configs
 are Python modules exporting a nested `config` dict (configs/), and this
 backfills the same runtime defaults as the JAX engine so both read the
-same files. `auto_pair_budget` sizes the rasterizer's per-tile pair budget
-from a map's density, for the engine and for the evaluation renders.
+same files, and refuses the JAX engine's tuning keys the port does not
+implement (`RETIRED_TPU`). `auto_pair_budget` sizes the rasterizer's
+per-tile pair budget from a map's density, for the engine and for the
+evaluation renders.
 """
 from __future__ import annotations
 
 import copy
+
+# frames between two truncation probes once two readings exist
+TRUNC_PROBE_EVERY = 10
+# the most per-keyframe binnings a mapping phase keeps
+MAP_CACHE_SLOTS = 64
+# `tpu` keys of the JAX engine that the port does not read, each with the
+# one value it implements (None: the config's own max_pairs_per_tile): a
+# config may spell that value; any other raises
+RETIRED_TPU = {"two_class_frac": 0, "two_class_sparse_div": 4,
+               "track_rebin_every": 0, "map_cache_refresh": 1,
+               "trunc_probe_every": TRUNC_PROBE_EVERY,
+               "map_cache_slots": MAP_CACHE_SLOTS,
+               "map_max_pairs_per_tile": None}
 
 
 def auto_pair_budget(n_active: int, n_tiles: int, span_cap: int, base: int,
@@ -108,6 +123,12 @@ def prepare_config(config: dict) -> dict:
     # so the pool's device memory grows /stride^2 with sequence length
     # (pipeline.BaseframeStore; 1 = full-res exact)
     tpu.setdefault("baseframe_depth_stride", 4)
+    for key, value in RETIRED_TPU.items():
+        value = tpu["max_pairs_per_tile"] if value is None else value
+        if key in tpu and tpu[key] != value:
+            raise ValueError(
+                f"tpu.{key}={tpu[key]!r}: the port implements only "
+                f"{value!r}; drop the key or set it to that value")
     return config
 
 

@@ -9,15 +9,10 @@ slot gather from the (N, 8) field table -> K1 forward; backward: K3
 (row-major per-slot gradients) -> `apply_slot_inverse` (the scatter-free
 transpose of the gather).
 
-`KFBinCache2C` / `splat_binned_2c` are the two-class twins (binning.
-bin_two_class): each class renders through its own K1 launch with its
-rows' image tiles, the rows merge back to the image's, and the backward is
-one K3 launch per class and one inverse-map gather over [dense rows;
-sparse rows]. `MapCacheStore` keeps the per-keyframe caches of the
-current section with the JAX engine's refresh policy, two-class when
-`k_dense` > 0. `GlobalBinCache` is the binning of [frozen sections;
-trainable section] at the section's base keyframe for the
-global-consistency term, and `trunc_probe` measures what the pair
+`MapCacheStore` keeps the per-keyframe caches of the current section with
+the JAX engine's refresh policy. `GlobalBinCache` is the binning of
+[frozen sections; trainable section] at the section's base keyframe for
+the global-consistency term, and `trunc_probe` measures what the pair
 budget truncates: the share of pixels a render at the budget and one at
 4x it disagree on.
 """
@@ -31,8 +26,8 @@ from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
 from ..ops.rasterizer.binning import (SlotInv, apply_slot_inverse,
-                                      bin_gaussians, bin_two_class,
-                                      gather_channels, slot_inverse)
+                                      bin_gaussians, gather_channels,
+                                      slot_inverse)
 from ..ops.rasterizer.cuda_splat import (assemble_image, splat_backward_vals_rows,
                                          splat_forward)
 from .losses import RenderResult
@@ -46,22 +41,6 @@ class KFBinCache(NamedTuple):
     inv: SlotInv            # sorted inverse map
     quat: torch.Tensor      # (4,) keyframe w2c rotation (unnormalized)
     trans: torch.Tensor     # (3,)
-
-
-class KFBinCache2C(NamedTuple):
-    """Two-class per-keyframe binning: the k_dense fullest tiles at the full
-    budget, the rest at a smaller one; `inv` indexes the flat layout
-    [dense rows; sparse rows]."""
-    tab_d: torch.Tensor      # (Kp, mpt_d) int64
-    counts_d: torch.Tensor   # (Kp,) int32
-    tids_d: torch.Tensor     # (Kp,) int32 image tile per dense row
-    tab_s: torch.Tensor      # (Sp, mpt_s)
-    counts_s: torch.Tensor   # (Sp,)
-    tids_s: torch.Tensor     # (Sp,)
-    merge: torch.Tensor      # (n_tiles,) row into [accum_d; accum_s]
-    inv: SlotInv
-    quat: torch.Tensor       # (4,)
-    trans: torch.Tensor      # (3,)
 
 
 class GlobalBinCache(NamedTuple):
@@ -111,31 +90,6 @@ def build_kf_cache(params: GaussianParams, active: torch.Tensor,
     tab, counts = pad_bin_tables(b.tab, b.counts, tile_pad)
     return KFBinCache(tab=tab, counts=counts, inv=slot_inverse(b.inv_pos),
                       quat=cam_quat, trans=cam_trans)
-
-
-@torch.no_grad()
-def build_kf_cache_2c(params: GaussianParams, active: torch.Tensor,
-                      cam_quat: torch.Tensor, cam_trans: torch.Tensor,
-                      cam: Camera, *, tile: int = 16, span_cap: int = 2,
-                      max_pairs_per_tile: int = 512, mpt_sparse: int = 128,
-                      k_dense: int = 64, select: str = "depth",
-                      with_inverse: bool = True) -> KFBinCache2C:
-    """`build_kf_cache` with two-class binning (binning.bin_two_class): the
-    k_dense fullest tiles at max_pairs_per_tile, the rest at mpt_sparse
-    (both rounded up to 128). Without the inverse map (a forward-only
-    render) `inv` is None."""
-    tiles_x = -(-cam.width // tile)
-    tiles_y = -(-cam.height // tile)
-    mpt = -(-max_pairs_per_tile // 128) * 128
-    mpt_s = -(-mpt_sparse // 128) * 128
-    proj = project_at(params, active, cam_quat, cam_trans, cam)
-    b = bin_two_class(proj, tile, span_cap, tiles_x, tiles_y, mpt, mpt_s,
-                      k_dense, with_inverse=with_inverse, select=select)
-    return KFBinCache2C(
-        tab_d=b.tab_d, counts_d=b.counts_d, tids_d=b.tids_d, tab_s=b.tab_s,
-        counts_s=b.counts_s, tids_s=b.tids_s, merge=b.merge,
-        inv=slot_inverse(b.inv_pos) if with_inverse else None,
-        quat=cam_quat, trans=cam_trans)
 
 
 def concat_params(fixed: GaussianParams, params: GaussianParams
@@ -201,59 +155,6 @@ def splat_binned(f8: torch.Tensor, tab: torch.Tensor, inv: SlotInv,
     return SplatBinned.apply(f8, tab, inv.pos, inv.w, quat, trans, counts, cam)
 
 
-def _classes(kfc: KFBinCache2C):
-    return ((kfc.tab_d, kfc.counts_d, kfc.tids_d),
-            (kfc.tab_s, kfc.counts_s, kfc.tids_s))
-
-
-def splat_forward_2c(f8: torch.Tensor, kfc: KFBinCache2C, R9: torch.Tensor,
-                     cam: Camera):
-    """Per class: the slot gather and K1 with the rows' image tiles. Returns
-    (per-class slots, per-class accum, the merged (n_tiles, 8, 256))."""
-    tiles_x = -(-cam.width // 16)
-    slots = [gather_channels(f8, tab) for tab, _, _ in _classes(kfc)]
-    accs = [splat_forward(sl, R9, kfc.trans, counts, cam, tiles_x, tids)
-            for sl, (_, counts, tids) in zip(slots, _classes(kfc))]
-    return slots, accs, torch.cat(accs)[kfc.merge]
-
-
-class SplatBinned2C(torch.autograd.Function):
-    """`SplatBinned` over a two-class cache: per class the slot gather and
-    K1 with the rows' image tiles, merged by one row gather. Backward: per
-    class K3 on the cotangent rows of its tiles (g[tids]; padded rows have
-    count 0, so K3 gives them zeros whatever g[0] holds), then one
-    inverse-map gather over [dense rows; sparse rows]."""
-
-    @staticmethod
-    def forward(ctx, f8, kfc, cam):
-        R9 = geo.quat_to_rotmat(geo.normalize(kfc.quat)).reshape(9)
-        slots, accs, accum = splat_forward_2c(f8.detach(), kfc, R9, cam)
-        ctx.save_for_backward(R9, *slots, *accs)
-        ctx.kfc, ctx.cam, ctx.M = kfc, cam, f8.shape[0]
-        return accum
-
-    @staticmethod
-    def backward(ctx, g):
-        R9, sl_d, sl_s, acc_d, acc_s = ctx.saved_tensors
-        kfc, cam = ctx.kfc, ctx.cam
-        tiles_x = -(-cam.width // 16)
-        rows = [splat_backward_vals_rows(sl, R9, kfc.trans, counts, acc,
-                                         g[tids.long()], cam, tiles_x, tids)
-                for sl, acc, (_, counts, tids) in
-                zip((sl_d, sl_s), (acc_d, acc_s), _classes(kfc))]
-        flat = torch.cat([r.reshape(-1, 8) for r in rows])
-        g_tail = apply_slot_inverse(flat, kfc.inv)
-        Ng = kfc.inv.pos.shape[0]
-        if Ng < ctx.M:
-            g_tail = torch.cat([g_tail.new_zeros((ctx.M - Ng, 8)), g_tail])
-        return g_tail, None, None
-
-
-def splat_binned_2c(f8: torch.Tensor, kfc: KFBinCache2C, cam: Camera
-                    ) -> torch.Tensor:
-    return SplatBinned2C.apply(f8, kfc, cam)
-
-
 def accum_to_result(accum: torch.Tensor, cam: Camera, tile: int = 16
                     ) -> RenderResult:
     return accum_result(accum, cam, accum.new_zeros((1,)), tile)
@@ -264,12 +165,6 @@ def render_binned(f8: torch.Tensor, kfc: KFBinCache, cam: Camera
     """Render the trainable section through one keyframe's frozen binning."""
     return accum_to_result(splat_binned(f8, kfc.tab, kfc.inv, kfc.quat,
                                         kfc.trans, kfc.counts, cam), cam)
-
-
-def render_binned_2c(f8: torch.Tensor, kfc: KFBinCache2C, cam: Camera
-                     ) -> RenderResult:
-    """`render_binned` over a two-class cache."""
-    return accum_to_result(splat_binned_2c(f8, kfc, cam), cam)
 
 
 def render_binned_global(f8: torch.Tensor, gc: GlobalBinCache, cam: Camera
@@ -285,14 +180,10 @@ def render_binned_global(f8: torch.Tensor, gc: GlobalBinCache, cam: Camera
 def trunc_probe(params: GaussianParams, active: torch.Tensor,
                 quat: torch.Tensor, trans: torch.Tensor, cam: Camera,
                 span_cap: int = 2, mpt: int = 512,
-                select: str = "importance", k_dense: int = 0,
-                sparse_div: int = 4) -> torch.Tensor:
+                select: str = "importance") -> torch.Tensor:
     """The measured truncation harm at one pose: the share of pixels whose
     rgb differs by more than 1/255 between the render at the pair budget
-    `mpt` and the render at 4 mpt (K1 once each). With k_dense > 0 the
-    first render is the two-class operating point (the k_dense fullest
-    tiles at mpt, the rest at max(128, mpt // sparse_div)); the oracle
-    stays single-class. A device scalar: the engine reads it a frame
+    `mpt` and the render at 4 mpt (K1 once each). A device scalar: the engine reads it a frame
     later, so the probe adds no host wait. Each binning and its slots live
     only inside this call."""
     f8 = pack_fields8(params)
@@ -300,20 +191,11 @@ def trunc_probe(params: GaussianParams, active: torch.Tensor,
     tiles_x = -(-cam.width // 16)
     ims = []
     for budget in (mpt, 4 * mpt):
-        if budget == mpt and k_dense > 0:
-            k2 = build_kf_cache_2c(
-                params, active, quat, trans, cam, span_cap=span_cap,
-                max_pairs_per_tile=mpt,
-                mpt_sparse=max(128, mpt // sparse_div), k_dense=k_dense,
-                select=select, with_inverse=False)
-            accum = splat_forward_2c(f8, k2, R9, cam)[2]
-            del k2
-        else:
-            b = _bin_at(params, active, quat, trans, cam, 16, span_cap,
-                        budget, select, with_inverse=False)
-            accum = splat_forward(gather_channels(f8, b.tab), R9, trans,
-                                  b.counts, cam, tiles_x)
-            del b
+        b = _bin_at(params, active, quat, trans, cam, 16, span_cap, budget,
+                    select, with_inverse=False)
+        accum = splat_forward(gather_channels(f8, b.tab), R9, trans,
+                              b.counts, cam, tiles_x)
+        del b
         ims.append(assemble_image(accum, cam)[:3])
         del accum
     diff = (ims[0] - ims[1]).abs().amax(0)
@@ -324,25 +206,19 @@ class MapCacheStore:
     """Per-keyframe bin caches of the CURRENT section.
 
     Policy (as the JAX engine's): the just-tracked frame's cache is built
-    fresh every mapping phase; per phase the `refresh` stalest other slots
-    are rebuilt (built with fewer gaussians than now, or STALE_AGE phases
+    fresh every mapping phase; per phase the stalest other slot is
+    rebuilt (built with fewer gaussians than now, or STALE_AGE phases
     ago); a shape change (capacity or pair budget) rebuilds every slot; when
     the section has more keyframes than the W slots asked for, ring 0
     stays and the oldest other slot is evicted. Slots are a Python list of
-    caches rather than one stacked buffer. k_dense > 0 builds two-class
-    caches (the k_dense fullest tiles at the budget, the rest at
-    max(128, mpt // sparse_div)); `tile_pad` pads single-class tables for a
+    caches rather than one stacked buffer; `tile_pad` pads the tables for a
     tile-sharded group. `n_built` is the number of caches the last
     `update` built."""
 
     STALE_AGE = 12
 
-    def __init__(self, refresh: int = 1, select: str = "depth",
-                 k_dense: int = 0, sparse_div: int = 4, tile_pad: int = 0):
-        self.refresh = refresh
+    def __init__(self, select: str = "depth", tile_pad: int = 0):
         self.select = select
-        self.k_dense = k_dense
-        self.sparse_div = sparse_div
         self.tile_pad = tile_pad
         self.reset()
 
@@ -359,12 +235,6 @@ class MapCacheStore:
     def _build(self, params, active, ring_idx, cam, span_cap, mpt):
         quat, trans = self.poses[ring_idx]
         self.n_built += 1
-        if self.k_dense > 0:
-            return build_kf_cache_2c(
-                params, active, quat, trans, cam, span_cap=span_cap,
-                max_pairs_per_tile=mpt,
-                mpt_sparse=max(128, mpt // self.sparse_div),
-                k_dense=self.k_dense, select=self.select)
         return build_kf_cache(params, active, quat, trans, cam,
                               span_cap=span_cap, max_pairs_per_tile=mpt,
                               tile_pad=self.tile_pad, select=self.select)
@@ -376,8 +246,7 @@ class MapCacheStore:
         self.poses[ring_idx] = (quat, trans)
         self.tick += 1
         self.n_built = 0
-        key = (params.means3d.shape[0], mpt, cam.height, cam.width, W,
-               self.k_dense, self.sparse_div)
+        key = (params.means3d.shape[0], mpt, cam.height, cam.width, W)
         if self.key != key:
             self.slots, self.ring_of_slot = [], []
             self.built_n, self.built_tick = [], []
@@ -386,13 +255,11 @@ class MapCacheStore:
         for r in missing:
             self._admit(r, self._build(params, active, r, cam, span_cap, mpt),
                         n_active, W)
-        for _ in range(self.refresh):
-            stale = [i for i, b in enumerate(self.built_n)
-                     if (b < n_active
-                         or self.tick - self.built_tick[i] >= self.STALE_AGE)
-                     and self.ring_of_slot[i] != ring_idx]
-            if not stale:
-                break
+        stale = [i for i, b in enumerate(self.built_n)
+                 if (b < n_active
+                     or self.tick - self.built_tick[i] >= self.STALE_AGE)
+                 and self.ring_of_slot[i] != ring_idx]
+        if stale:
             slot = min(stale, key=lambda i: (self.built_n[i],
                                              self.built_tick[i]))
             self.slots[slot] = self._build(params, active,

@@ -196,16 +196,12 @@ def map_frame_binned(params: GaussianParams, kf: KeyframeBuffer, kfc: Sequence,
                      draws: Sequence[int] | None = None,
                      generator: torch.Generator | None = None, gc=None):
     """`map_binned_loop` over per-keyframe frozen binnings
-    (map_cache.render_binned, or render_binned_2c for two-class caches)
-    and, with `cfg.use_global`, the global binning `gc`
-    (map_cache.GlobalBinCache, single-class either way)."""
-    from .map_cache import (KFBinCache2C, render_binned, render_binned_2c,
-                            render_binned_global)
-    render = (render_binned_2c if isinstance(kfc[0], KFBinCache2C)
-              else render_binned)
+    (map_cache.render_binned) and, with `cfg.use_global`, the global
+    binning `gc` (map_cache.GlobalBinCache)."""
+    from .map_cache import render_binned, render_binned_global
 
     def render_local(v8, k):
-        return render(v8, k, cam)
+        return render_binned(v8, k, cam)
 
     def render_global(v8):
         return render_binned_global(v8, gc, cam)

@@ -33,9 +33,7 @@ chooses them:
     on (its default is on for CUDA and off for the CPU, as the JAX default
     follows the backend); otherwise the generic route.
 
-With `tpu.two_class_frac` > 0 both default loops bin in two classes
-(binning.bin_two_class: the fullest tiles at the pair budget, the rest at
-a fraction of it). With `tpu.mesh_devices` = N > 1 the engine runs as one
+With `tpu.mesh_devices` = N > 1 the engine runs as one
 of N ranks of a `torch.distributed` group (parallel/engine.py): each rank
 holds the whole state and renders its range of tile rows in the default
 loops; everything else runs replicated, and rank 0 alone writes files.
@@ -85,14 +83,13 @@ from ..models import gaussians as G
 from ..ops import geometry as geo
 from ..ops.camera import setup_camera
 from ..ops.image import geometric_edge_mask, resize_mask_nearest
-from ..ops.rasterizer.binning import BLOCK
 from ..utils.common import resolve_device, save_params_ckpt
 from ..utils.observability import (RunLogger, Trace, frame_quality,
                                    report_loss, report_progress,
                                    save_progress_panel,
                                    save_tracking_loss_viz, span_seconds)
-from .config import (auto_pair_budget, prepare_config,
-                     separate_densification_res)
+from .config import (MAP_CACHE_SLOTS, TRUNC_PROBE_EVERY, auto_pair_budget,
+                     prepare_config, separate_densification_res)
 from .densify import (base_frame_pointcloud, densify_from_pixels,
                       densify_nonpresence, first_frame_pointcloud)
 from .losses import Frame, LossConfig, render_slam
@@ -103,7 +100,7 @@ from .p2p import P2PTarget, make_p2p_target
 from .selection import (find_earliest_keyframe, overlap_percents,
                         select_earliest_topk_base, select_topk_overlap,
                         select_visbased)
-from .track_cache import build_track_cache, build_track_cache_2c
+from .track_cache import build_track_cache
 from .tracking import (GRAPHED, TrackingConfig, init_track_state,
                        probe_loss, track_frame, track_frame_cached)
 
@@ -255,10 +252,6 @@ class VTGaussianSLAM:
             "span_cap": tpu["span_cap"],
             "max_pairs_per_tile": tpu["max_pairs_per_tile"],
             "chunk": tpu["blend_chunk"]}
-        self.map_backend_kwargs = dict(
-            self.backend_kwargs,
-            max_pairs_per_tile=tpu.get("map_max_pairs_per_tile",
-                                       tpu["max_pairs_per_tile"]))
 
         color0, depth0, intrinsics0, pose0 = self.dataset[0]
         self.intrinsics = np.asarray(intrinsics0)[:3, :3]
@@ -287,11 +280,8 @@ class VTGaussianSLAM:
         self.ring_depths = torch.zeros((self.bfe, 1, H, W), device=self.device)
         self._bin_select = ("importance" if tpu.get("importance_binning", True)
                             else "depth")
-        self._setup_two_class()
-        self.map_store = MapCacheStore(
-            refresh=int(tpu.get("map_cache_refresh", 1)),
-            select=self._bin_select, k_dense=self._k_dense,
-            sparse_div=self._two_class_div, tile_pad=self.tile_pad)
+        self.map_store = MapCacheStore(select=self._bin_select,
+                                       tile_pad=self.tile_pad)
         self.baseframes = BaseframeStore(
             H, W, tpu["baseframe_capacity_quantum"],
             stride=int(tpu.get("baseframe_depth_stride", 4)),
@@ -404,29 +394,6 @@ class VTGaussianSLAM:
         self._track_cached_fn = make_track_frame_cached_sharded(self.group)
         self._map_binned_fn = make_map_frame_binned_sharded(self.group)
 
-    def _setup_two_class(self):
-        """Two-class binning (binning.bin_two_class) at tpu.two_class_frac
-        of the image's tiles, rounded to whole 8-tile blocks (the env vars
-        VTGS_TWO_CLASS_FRAC / VTGS_TWO_CLASS_DIV override the config, as in
-        the JAX engine): the dense tiles keep the pair budget, the rest run
-        max(128, mpt // two_class_sparse_div). Off (k_dense 0) at frac 0
-        and on a tile-sharded group, whose loops bin single-class."""
-        tpu = self.config["tpu"]
-        tcf = os.environ.get("VTGS_TWO_CLASS_FRAC")
-        self._two_class_frac = (float(tcf) if tcf is not None
-                                else float(tpu.get("two_class_frac", 0.0)))
-        tcd = os.environ.get("VTGS_TWO_CLASS_DIV")
-        self._two_class_div = (int(tcd) if tcd is not None
-                               else int(tpu.get("two_class_sparse_div", 4)))
-        if self.group is not None:
-            self._two_class_frac = 0.0
-        n_tiles = (-(-self.cam.height // 16)) * (-(-self.cam.width // 16))
-        self._k_dense = 0
-        if self._two_class_frac > 0.0:
-            k = int(round(self._two_class_frac * n_tiles))
-            self._k_dense = min(max(-(-k // BLOCK) * BLOCK, BLOCK),
-                                (n_tiles - 1) // BLOCK * BLOCK)
-
     # ------------------------------------------------------------------
     def run_dir(self) -> str:
         return os.path.join(self.config.get("workdir", "."),
@@ -458,7 +425,6 @@ class VTGaussianSLAM:
 
     def _loss_cfg(self, tracking: bool) -> LossConfig:
         tr = self.config["tracking" if tracking else "mapping"]
-        bk = self.backend_kwargs if tracking else self.map_backend_kwargs
         return LossConfig(
             tracking=tracking, use_sil_for_loss=tr["use_sil_for_loss"],
             ignore_outlier_depth_loss=tr["ignore_outlier_depth_loss"],
@@ -466,7 +432,7 @@ class VTGaussianSLAM:
                           and tr["use_sil_for_loss"]),
             im_weight=float(tr["loss_weights"]["im"]),
             depth_weight=float(tr["loss_weights"]["depth"]),
-            backend_kwargs=tuple(sorted(bk.items())))
+            backend_kwargs=tuple(sorted(self.backend_kwargs.items())))
 
     def _init_first_frame(self, color0, depth0):
         frame = self._stage(color0, depth0)
@@ -614,10 +580,6 @@ class VTGaussianSLAM:
         span = tpu["span_cap"]
         self.backend_kwargs["max_pairs_per_tile"] = auto_pair_budget(
             n, tiles, span, tpu["max_pairs_per_tile"], boost=self._mpt_boost)
-        self.map_backend_kwargs["max_pairs_per_tile"] = auto_pair_budget(
-            n, tiles, span,
-            tpu.get("map_max_pairs_per_tile", tpu["max_pairs_per_tile"]),
-            boost=self._mpt_boost)
 
     # ------------------------------------------------------------------
     def _select_boundary_sections(self, t: int, frame: Frame,
@@ -867,10 +829,9 @@ class VTGaussianSLAM:
                 tracking=True)
 
     def _run_track(self, sec, state, frame, aux_mask, p2p_t, tcfg):
-        """The frozen-binning tracking loop, rebinned every
-        tpu.track_rebin_every iterations when that is set, then the
-        truncation probe at the best pose on its cadence; the generic loop
-        when the cache route is off."""
+        """The frozen-binning tracking loop over one binning at the initial
+        pose, then the truncation probe at the best pose on its cadence;
+        the generic loop when the cache route is off."""
         trace = self.trace
         if not self.track_cached:
             with trace.span("track.loop"):
@@ -879,76 +840,48 @@ class VTGaussianSLAM:
                                                self.cam, tcfg, p2p_t)
                 self._sync()
             trace.count("track.iters", tcfg.num_iters)
-            self._track_hist_add(sec, state, frame, aux_mask, tcfg,
-                                 [(im_h, d_h)])
+            self._track_hist_add(sec, state, frame, aux_mask, tcfg, im_h,
+                                 d_h)
             return state
-        tpu = self.config["tpu"]
         bk = self.backend_kwargs
         mpt = bk["max_pairs_per_tile"]
-        rebin = int(tpu.get("track_rebin_every", 0) or 0)
-        total = tcfg.num_iters
-        seg_lens = ([total] if rebin <= 0 or rebin >= total else
-                    [rebin] * (total // rebin)
-                    + ([total % rebin] if total % rebin else []))
+        with trace.span("track.cache"):
+            cache = build_track_cache(
+                sec.params, sec.active_mask(), state.quat, state.trans,
+                self.cam, span_cap=bk["span_cap"], max_pairs_per_tile=mpt,
+                chunk=bk["chunk"], tile_pad=self.tile_pad,
+                select=self._bin_select)
+        replayed = GRAPHED.replays
+        with trace.span("track.loop"):
+            state, im_h, d_h = self._track_cached_fn(
+                cache, state, frame, aux_mask, self.cam, tcfg, p2p_t)
+            self._sync()
+        trace.count("track.iters", tcfg.num_iters)
+        trace.count("track.graph_iters", GRAPHED.replays - replayed)
         n_tiles = (-(-self.cam.height // 16)) * (-(-self.cam.width // 16))
-        mpt_s = max(128, mpt // self._two_class_div)
-        hists = []
-        for seg in seg_lens:
-            with trace.span("track.cache"):
-                if self._k_dense > 0:
-                    cache = build_track_cache_2c(
-                        sec.params, sec.active_mask(), state.quat,
-                        state.trans, self.cam, span_cap=bk["span_cap"],
-                        max_pairs_per_tile=mpt, mpt_sparse=mpt_s,
-                        k_dense=self._k_dense, select=self._bin_select)
-                else:
-                    cache = build_track_cache(
-                        sec.params, sec.active_mask(), state.quat,
-                        state.trans, self.cam, span_cap=bk["span_cap"],
-                        max_pairs_per_tile=mpt, chunk=bk["chunk"],
-                        tile_pad=self.tile_pad, select=self._bin_select)
-            replayed = GRAPHED.replays
-            with trace.span("track.loop"):
-                state, im_h, d_h = self._track_cached_fn(
-                    cache, state, frame, aux_mask, self.cam,
-                    tcfg._replace(num_iters=seg), p2p_t)
-                hists.append((im_h, d_h))
-                self._sync()
-            trace.count("track.iters", seg)
-            trace.count("track.graph_iters", GRAPHED.replays - replayed)
-            if self._k_dense > 0:
-                # saturation at each tile's own class budget (padded rows
-                # have count 0)
-                n_sat = int((cache.counts_d >= mpt).sum()
-                            + (cache.counts_s >= mpt_s).sum())
-                trunc = n_sat / n_tiles
-            else:
-                trunc = float((cache.counts[:n_tiles] >= mpt).double().mean())
-            self.stats["tile_truncation_frac_max"] = max(
-                self.stats["tile_truncation_frac_max"], trunc)
-        if tpu.get("auto_pair_budget", True):
+        self.stats["tile_truncation_frac_max"] = max(
+            self.stats["tile_truncation_frac_max"],
+            float((cache.counts[:n_tiles] >= mpt).double().mean()))
+        if self.config["tpu"].get("auto_pair_budget", True):
             # the measured harm at the best pose, read on the next frame
             # (no wait here): every frame until two readings exist, then
-            # every tpu.trunc_probe_every frames
-            every = max(1, int(tpu.get("trunc_probe_every", 10)))
-            if len(self._harm_hist) < 2 or self._frames_tracked % every == 0:
+            # every TRUNC_PROBE_EVERY frames
+            if (len(self._harm_hist) < 2
+                    or self._frames_tracked % TRUNC_PROBE_EVERY == 0):
                 self._pending_harm = trunc_probe(
                     sec.params, sec.active_mask(), state.best_quat,
                     state.best_trans, self.cam, span_cap=bk["span_cap"],
-                    mpt=mpt, select=self._bin_select, k_dense=self._k_dense,
-                    sparse_div=self._two_class_div)
+                    mpt=mpt, select=self._bin_select)
                 self._pending_harm_mpt = mpt
         self._frames_tracked += 1
-        self._track_hist_add(sec, state, frame, aux_mask, tcfg, hists)
+        self._track_hist_add(sec, state, frame, aux_mask, tcfg, im_h, d_h)
         return state
 
-    def _track_hist_add(self, sec, state, frame, aux_mask, tcfg, hists):
+    def _track_hist_add(self, sec, state, frame, aux_mask, tcfg, im_h, d_h):
         """Keep a tracking call's loss streams for the frame's records and,
         with tracking.visualize_tracking_loss, draw its figure."""
         if not tcfg.keep_hist:
             return
-        im_h = torch.cat([h[0] for h in hists])
-        d_h = torch.cat([h[1] for h in hists])
         self._track_hist.append((im_h, d_h))
         if (not self.config["tracking"].get("visualize_tracking_loss", False)
                 or self.rank != 0):
@@ -1119,17 +1052,16 @@ class VTGaussianSLAM:
             new_params, hist = self._map_generic(t, frame, sec, mcfg,
                                                  use_global)
         else:
-            mbk = self.map_backend_kwargs
-            W = min(self.bfe, int(cfg["tpu"].get("map_cache_slots", 64)))
+            bk = self.backend_kwargs
+            W = min(self.bfe, MAP_CACHE_SLOTS)
             with trace.span("map.store"):
                 slots, slot_ids, count = self.map_store.update(
                     sec.params, sec.active_mask(), sec.n_active, idx_in,
                     self.traj.quats[t].clone(), self.traj.trans[t].clone(),
-                    self.cam, mbk["span_cap"], mbk["max_pairs_per_tile"], W)
+                    self.cam, bk["span_cap"], bk["max_pairs_per_tile"], W)
             trace.count("map.binnings_built", self.map_store.n_built)
             gc = (self._global_cache(sec, sec.active_mask(), start,
-                                     mbk["max_pairs_per_tile"],
-                                     mbk["span_cap"])
+                                     bk["max_pairs_per_tile"], bk["span_cap"])
                   if use_global else None)
             kf = KeyframeBuffer(colors=self.ring_colors,
                                 depths=self.ring_depths, count=count,

@@ -312,17 +312,14 @@ def track_frame_cached(cache, state: TrackState, frame: Frame,
                        aux_mask: torch.Tensor | None, cam: Camera,
                        cfg: TrackingConfig, p2p_target: P2PTarget | None = None):
     """`track_loop` over the frozen-binning renderer (core/track_cache.py):
-    one K1 and one K2 launch per iteration, one of each per class for a
-    two-class cache (`TrackCache2C`). Where `graph_engages` (a card, two
-    iterations or more) iterations 2..num_iters replay a CUDA graph
+    one K1 and one K2 launch per iteration. Where `graph_engages` (a card,
+    two iterations or more) iterations 2..num_iters replay a CUDA graph
     (`track_loop_graphed`); `GRAPHED.replays` counts the iterations served
     so."""
-    from .track_cache import TrackCache2C, render_cached, render_cached_2c
-    render = (render_cached_2c if isinstance(cache, TrackCache2C)
-              else render_cached)
+    from .track_cache import render_cached
 
     def render_fn(quat, trans):
-        return render(cache, quat, trans, cam)
+        return render_cached(cache, quat, trans, cam)
 
     if graph_engages(state.quat.device, cfg.num_iters):
         return track_loop_graphed(render_fn, state, frame, aux_mask, cfg,

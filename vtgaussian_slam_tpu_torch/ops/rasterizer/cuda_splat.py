@@ -26,10 +26,10 @@ mirrors of what only the kernels do, for the CPU tests alone: `slot_box`
 (the per-slot cull box), `splat_forward_grouped` (K1's box cull and grouped
 select blends) and `backward_sums_tf32` (the backwards' split products).
 
-Every wrapper takes `tile_ids` (the image tile of each row: two-class
-binning's tile subsets) and `tile_offset` (added to it: a tile-sharded
-rank's first tile), as the JAX kernels' `tids` and `meta[1]`; the row
-still addresses every operand. A row of count 0 renders nothing and its
+Every wrapper takes `tile_ids` (the image tile of each row, for rows that
+hold a subset of the image's tiles; no engine route passes it) and
+`tile_offset` (added to it: a tile-sharded rank's first tile), as the JAX
+kernels' `tids` and `meta[1]`; the row still addresses every operand. A row of count 0 renders nothing and its
 backward rows are zeros, whatever its cotangent.
 
 Layouts: slots8 (T, 8, mpt) rows [wx wy wz logit_op log_scale r g b];
@@ -468,7 +468,7 @@ def splat_backward_all_plain(slots8, counts, cp, tiles_x, out, g,
 # ---------------------------------------------------------------------------
 def image_tiles(T: int, tile_ids, tile_offset: int, device):
     """The image tile of each of T operand rows, as the kernels' `image_tile`
-    reads it: `tile_ids` (two-class binning's per-row tiles; None: the rows
+    reads it: `tile_ids` (a per-row tile subset; None: the rows
     themselves) plus `tile_offset` (a tile-sharded rank's first tile). None
     when both are absent, so the plain versions take their own default."""
     if tile_ids is None and tile_offset == 0:
