@@ -177,7 +177,11 @@ Phases (any failure raises and the exit code is non-zero):
      (its PyTorch ops), each within the f32 rounding bound of the
      branch's f64 values (tests/test_torch_map_loss.py), a repeated launch
      equal to the bit, the times of forward + backward, of the forward
-     and of the plain branch, and the bound;
+     and of the plain branch, and the bound; then the slot kernels (`SG`
+     the slot gather, `SI` the slot-inverse sum, csrc/slots.cu) on the
+     newest keyframe cache and K3's rows on it: each equal to its plain
+     version to the bit and to itself on a repeated launch, its time, the
+     time of the PyTorch composition it replaced, and the bound by bytes;
   3b. the device-busy share of the loops (`[busy]` lines): ten iterations
      each of the default tracking loop, the default mapping loop, the
      generic tracking loop and the replica boundary tracking loop with its
@@ -185,9 +189,9 @@ Phases (any failure raises and the exit code is non-zero):
      host clock alone and once under `torch.profiler`: the summed device
      time over the unprofiled wall time, the launches per iteration and the
      five kernels with the most device time;
-  4. a `{"kernels": [...]}` line, K1-K6 and ML (launches: the sum over the
-     engine runs, phase 2e's evaluations and CLI runs and phases 2f and
-     2h);
+  4. a `{"kernels": [...]}` line, K1-K6, ML, SG and SI (launches: the sum
+     over the engine runs, phase 2e's evaluations and CLI runs and phases
+     2f and 2h);
      the card line; and as the
      last line
      `{"ok": true, "device": {...}}`.
@@ -1823,16 +1827,16 @@ def order_sensitivity(ref):
     import torch
     from vtgaussian_slam_tpu_torch.core import map_cache
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
-    apply = map_cache.apply_slot_inverse
-    map_cache.apply_slot_inverse = lambda flat, inv: apply(
-        flat, map_cache.SlotInv(inv.pos.flip(1), inv.w.flip(1)))
+    apply = map_cache.slot_inverse_sum
+    map_cache.slot_inverse_sum = lambda flat, pos, w: apply(
+        flat, pos.flip(1).contiguous(), w.flip(1).contiguous())
     try:
         eng = VTGaussianSLAM(sharded_config(1), device="cuda")
         for t in range(SHARDED_FRAMES):
             eng.process_frame(t)
         torch.cuda.synchronize()
     finally:
-        map_cache.apply_slot_inverse = apply
+        map_cache.slot_inverse_sum = apply
     n = SHARDED_FRAMES
     return np.abs(eng.traj.trans[:n].cpu().numpy()
                   - ref.traj.trans[:n].cpu().numpy()).max(1)
@@ -1849,6 +1853,7 @@ def sharded_rank(rank, world, port, out_dir):
     from vtgaussian_slam_tpu_torch.core.pipeline import VTGaussianSLAM
     from vtgaussian_slam_tpu_torch.ops import map_loss as ml
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_slots as csl
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
     from vtgaussian_slam_tpu_torch.parallel import engine as pe
     pe.init_process_group(rank, world, "cuda:0", "gloo",
@@ -1857,7 +1862,8 @@ def sharded_rank(rank, world, port, out_dir):
         wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
                     "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
                     "K5": cb.blend_backward, "K6": cs.splat_backward_all,
-                    "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward}
+                    "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward,
+                    "SG": csl.slot_gather, "SI": csl.slot_inverse_sum}
         eng = VTGaussianSLAM(sharded_config(world), device="cuda:0")
         zeroed(wrappers)
         t0 = time.time()
@@ -2001,7 +2007,7 @@ def sharded_phase(wrappers):
         for k, v in json.loads(str(r["launches"])).items():
             launches[k] += v
     print(f"[{tag}] launches (both ranks) {launches}")
-    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd")
+    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd", "SG", "SI")
                if launches[k] <= 0]
     assert not missing, f"kernels never launched on the sharded path: {missing}"
     return dict(launches=launches, engine=eng1)
@@ -2089,6 +2095,72 @@ def map_loss_row(r, frame, lcfg, launches, launches1):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def slot_rows(f8, kfc, rows, launches, launches1):
+    """The binned mapping renderer's row movement (csrc/slots.cu) on phase
+    3's mapping inputs: SG gathers the newest keyframe cache's planes from
+    the section's field table, SI maps K3's rows on that cache back onto
+    it. Each against its plain version bit for bit (SG's in-count slots
+    also against `gather_channels`), a repeated launch equal to the bit,
+    the time of one call and of 20 back to back (CUDA events, median of
+    10), the PyTorch composition it replaced (the "plain" column:
+    `gather_channels`, `weighted_inverse`) and the bound by bytes. Returns
+    the `kernels` rows "SG" and "SI"."""
+    import torch
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_slots as csl
+    from vtgaussian_slam_tpu_torch.ops.rasterizer.binning import (
+        gather_channels, weighted_inverse)
+    tab, counts, pos, w = kfc.tab, kfc.counts, kfc.inv.pos, kfc.inv.w
+    T, mpt = tab.shape
+    N, s2 = pos.shape
+    live = int(counts.sum())
+    # SG: the count, a table entry and a 32-byte row per live slot read,
+    # every slot's 32 bytes written; SI: positions and weights read, a
+    # row per live column, a row written per Gaussian
+    sg_bytes = 4 * T + live * (8 + 32) + T * mpt * 32
+    si_bytes = N * s2 * (8 + 4) + int((w != 0).sum()) * 32 + N * 32
+    out = []
+    for name, kernel, plain, old, n_bytes in (
+            ("SG", lambda: csl.slot_gather(f8, tab, counts),
+             lambda: csl.slot_gather_plain(f8, tab, counts),
+             lambda: gather_channels(f8, tab), sg_bytes),
+            ("SI", lambda: csl.slot_inverse_sum(rows, pos, w),
+             lambda: weighted_inverse(rows, pos, w),
+             lambda: weighted_inverse(rows, pos, w), si_bytes)):
+        got, ref = kernel(), plain()
+        same_plain = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        same = torch.equal(got.view(torch.int32),
+                           kernel().view(torch.int32))
+        if name == "SG":
+            in_count = (torch.arange(mpt, device=tab.device)[None, :]
+                        < counts[:, None])
+            same_plain = same_plain and torch.equal(
+                got.transpose(1, 2)[in_count].view(torch.int32),
+                old().transpose(1, 2)[in_count].view(torch.int32))
+        print(f"[{name}] {tuple(got.shape)} from {T} tiles at mpt {mpt} "
+              f"({live} live slots), N {N}, s2 {s2}: equal to its plain "
+              f"version to the bit: {same_plain}; a repeated launch gives "
+              f"the same bits: {same}")
+        if not (same_plain and same):
+            raise AssertionError(f"{name} parts from its plain version or "
+                                 f"from itself")
+        ms = event_ms(kernel)
+        b2b_ms = event_ms(kernel, per=20)
+        old_ms = event_ms(old)
+        b_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        print(f"  {name}: {ms:.4f} ms (one wrapper call, median; 20 calls "
+              f"back to back {b2b_ms:.4f} ms per call) | PyTorch composition "
+              f"it replaced {old_ms:.4f} ms | bound {b_ms:.4f} ms (bytes; "
+              f"{n_bytes / 1e6:.1f} MB) | launches on the engine paths "
+              f"{launches[name]} (slice {launches1[name]})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "vtgaussian_slam_tpu_torch/csrc/slots.cu",
+                    "replaces": None, "launches": launches[name],
+                    "max_abs_err": 0.0, "ms": ms, "b2b_ms": b2b_ms,
+                    "plain_ms": old_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                    "library_ms": None})
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2116,6 +2188,7 @@ def main() -> int:
     from vtgaussian_slam_tpu_torch.ops import map_loss as ml
     from vtgaussian_slam_tpu_torch.ops.rasterizer import _build
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_blend as cb
+    from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_slots as csl
     from vtgaussian_slam_tpu_torch.ops.rasterizer import cuda_splat as cs
 
     # ---- phase 1 ------------------------------------------------------
@@ -2162,10 +2235,11 @@ def main() -> int:
     wrappers = {"K1": cs.splat_forward, "K2": cs.splat_backward_pose,
                 "K3": cs.splat_backward_vals_rows, "K4": cb.blend_forward,
                 "K5": cb.blend_backward, "K6": cs.splat_backward_all,
-                "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward}
+                "ML": ml.map_loss_forward, "ML_bwd": ml.map_loss_backward,
+                "SG": csl.slot_gather, "SI": csl.slot_inverse_sum}
     launches1, times1, q1 = run_frames(engine, NUM_FRAMES, wrappers, valid0,
                                        "slice")
-    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd")
+    missing = [k for k in ("K1", "K2", "K3", "K4", "ML", "ML_bwd", "SG", "SI")
                if launches1[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
 
@@ -2762,6 +2836,10 @@ def main() -> int:
 
     report.append(map_loss_row(rm, kframe, engine._loss_cfg(False),
                                launches, launches1))
+    rows_m = cs.splat_backward_vals_rows(slots_m, kR9, kfc.trans, kfc.counts,
+                                         accum_m, g_m, cam, tiles_x)
+    report.extend(slot_rows(f8, kfc, rows_m.reshape(-1, 8), launches,
+                            launches1))
 
     print(f"[ratios] same run: K5/K4 {times['K5'] / times['K4']:.3f}, "
           f"K2/K1 {times['K2'] / times['K1']:.3f}, "

@@ -178,7 +178,7 @@ def test_binnings_built_counts_the_keyframe_store_builds(run):
             assert "map.binnings_built" not in c, (t, c)  # generic route
     assert set(eng.frame_times[1]["counts"]) <= {
         "track.iters", "track.graph_iters", "map.iters", "map.binnings_built",
-        "map.loss_fused", "page.outs", "page.ins"}
+        "map.loss_fused", "map.slot_kernels", "page.outs", "page.ins"}
 
 
 def test_no_mapping_loss_is_fused_on_the_cpu(run):
@@ -187,6 +187,15 @@ def test_no_mapping_loss_is_fused_on_the_cpu(run):
     _, eng, _ = run
     for t in range(COUNTED):
         assert eng.frame_times[t]["counts"]["map.loss_fused"] == 0, t
+
+
+def test_no_slot_kernel_runs_on_the_cpu(run):
+    """`map.slot_kernels` counts the mapping iterations whose own render
+    launched the slot gather kernel: on the CPU, on either route, every
+    frame records 0."""
+    _, eng, _ = run
+    for t in range(COUNTED):
+        assert eng.frame_times[t]["counts"]["map.slot_kernels"] == 0, t
 
 
 def test_boundary_frames_carry_selection_spawn_and_map_select(run):

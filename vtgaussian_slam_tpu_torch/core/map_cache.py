@@ -5,9 +5,9 @@ rgb / logit opacity / log scale (the means and rotations have zero mapping
 lr in every config) and keyframe poses are fixed, so each keyframe's tile
 tables, depth order and inverse map are built once (`build_kf_cache`) and
 reused. Per mapping iteration `splat_binned` is one autograd Function:
-slot gather from the (N, 8) field table -> K1 forward; backward: K3
-(row-major per-slot gradients) -> `apply_slot_inverse` (the scatter-free
-transpose of the gather).
+slot gather from the (N, 8) field table (SG) -> K1 forward; backward: K3
+(row-major per-slot gradients) -> the slot-inverse sum (SI, the
+scatter-free transpose of the gather; `ops/rasterizer/cuda_slots.py`).
 
 `MapCacheStore` keeps the per-keyframe caches of the current section with
 the JAX engine's refresh policy. `GlobalBinCache` is the binning of
@@ -25,9 +25,9 @@ import torch
 from ..models.gaussians import GaussianParams
 from ..ops import geometry as geo
 from ..ops.camera import Camera
-from ..ops.rasterizer.binning import (SlotInv, apply_slot_inverse,
-                                      bin_gaussians, gather_channels,
-                                      slot_inverse)
+from ..ops.rasterizer.binning import (SlotInv, bin_gaussians,
+                                      gather_channels, slot_inverse)
+from ..ops.rasterizer.cuda_slots import slot_gather, slot_inverse_sum
 from ..ops.rasterizer.cuda_splat import (assemble_image, splat_backward_vals_rows,
                                          splat_forward)
 from .losses import RenderResult
@@ -122,15 +122,16 @@ def build_global_cache(fixed_params: GaussianParams,
 
 
 class SplatBinned(torch.autograd.Function):
-    """fields8 (M, 8) -> slot gather (frozen tab) -> K1 -> accum (T, 8, 256).
-    Backward: K3 rows -> inverse-map gather -> d fields8 (means columns
-    zero by construction); no pose gradient (mapping holds poses fixed)."""
+    """fields8 (M, 8) -> slot gather SG (frozen tab, 0 past each count) ->
+    K1 -> accum (T, 8, 256). Backward: K3 rows -> slot-inverse sum SI ->
+    d fields8 (means columns zero by construction); no pose gradient
+    (mapping holds poses fixed)."""
 
     @staticmethod
     def forward(ctx, f8, tab, inv_pos, inv_w, quat, trans, counts, cam):
         tiles_x = -(-cam.width // 16)
         R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
-        slots = gather_channels(f8, tab)
+        slots = slot_gather(f8, tab, counts)
         accum = splat_forward(slots, R9, trans, counts, cam, tiles_x)
         ctx.save_for_backward(slots, R9, trans, counts, accum, inv_pos, inv_w)
         ctx.cam, ctx.M = cam, f8.shape[0]
@@ -142,7 +143,7 @@ class SplatBinned(torch.autograd.Function):
         tiles_x = -(-ctx.cam.width // 16)
         rows = splat_backward_vals_rows(slots, R9, trans, counts, accum, g,
                                         ctx.cam, tiles_x)          # (T, mpt, 8)
-        g_tail = apply_slot_inverse(rows.reshape(-1, 8), SlotInv(inv_pos, inv_w))
+        g_tail = slot_inverse_sum(rows.reshape(-1, 8), inv_pos, inv_w)
         Ng = inv_pos.shape[0]
         if Ng < ctx.M:
             g_tail = torch.cat([g_tail.new_zeros((ctx.M - Ng, 8)), g_tail])

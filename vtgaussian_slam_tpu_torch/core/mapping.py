@@ -4,10 +4,10 @@ Parity: `vtgaussian_slam_tpu/core/mapping.py` (`map_frame`,
 `map_binned_loop`, `map_frame_binned`). Every iteration draws a keyframe
 uniformly, renders, takes the mapping loss and steps Adam (eps 1e-15).
 The binned route renders the (N, 8) field table through the keyframe's
-frozen binning (map_cache.splat_binned: K1 + K3) with zero lr on the mean
-columns; the generic route (`map_frame`) renders from scratch
-(render_slam: K4, backward K5) and steps every leaf whose lr is nonzero,
-per leaf.
+frozen binning (map_cache.splat_binned: SG + K1, backward K3 + SI) with
+zero lr on the mean columns; the generic route (`map_frame`) renders from
+scratch (render_slam: K4, backward K5) and steps every leaf whose lr is
+nonzero, per leaf.
 
 The global-consistency term (`use_global`): when the drawn keyframe's
 frame id is a multiple of baseframe_every, the loss of a render of
@@ -31,6 +31,7 @@ from ..models.gaussians import PARAM_KEYS, GaussianParams
 from ..models.optimizer import MAP_EPS, adam_init, adam_step
 from ..ops.camera import Camera
 from ..ops.map_loss import map_loss_forward
+from ..ops.rasterizer.cuda_slots import slot_gather
 from .losses import Frame, LossConfig, compute_loss, loss_from_render
 
 
@@ -67,20 +68,24 @@ def lrs8_of(lrs: dict, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class FusedLosses:
-    """`iters`: the mapping iterations so far whose own loss (the global
-    term's apart) launched the mapping-loss kernel, read from its
-    wrapper's launch count (`ops/map_loss.map_loss_forward`); the engine's
-    `map.loss_fused` counter reads it around each mapping loop."""
+class KernelIters:
+    """`iters`: the mapping iterations so far whose own loss or render (the
+    global term's apart) launched `wrapper`'s kernel, read from the
+    wrapper's launch count around that step. The engine's counters read
+    them around each mapping loop: `map.loss_fused` FUSED (the mapping-loss
+    kernel, `ops/map_loss.map_loss_forward`), `map.slot_kernels` SLOTS (the
+    slot gather SG, `ops/rasterizer/cuda_slots.slot_gather`)."""
 
-    def __init__(self):
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
         self.iters = 0
 
     def took(self, launches_before: int):
-        self.iters += map_loss_forward.launches - launches_before
+        self.iters += self.wrapper.launches - launches_before
 
 
-FUSED = FusedLosses()
+FUSED = KernelIters(map_loss_forward)
+SLOTS = KernelIters(slot_gather)
 
 
 def _draw(i: int, count: int, draws, generator) -> int:
@@ -173,7 +178,9 @@ def map_binned_loop(render_local, params: GaussianParams, kf: KeyframeBuffer,
         ring = slot_ids[slot]
         frame = Frame(color=kf.colors[ring], depth=kf.depths[ring])
         v8 = f8.detach().requires_grad_(True)
+        n0 = slot_gather.launches
         r = render_local(v8, kfc[slot])
+        SLOTS.took(n0)
         n0 = map_loss_forward.launches
         out = loss_from_render(r, frame, cfg.loss_cfg, half, False)
         FUSED.took(n0)

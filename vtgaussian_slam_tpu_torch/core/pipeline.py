@@ -94,7 +94,7 @@ from .densify import (base_frame_pointcloud, densify_from_pixels,
                       densify_nonpresence, first_frame_pointcloud)
 from .losses import Frame, LossConfig, render_slam
 from .map_cache import MapCacheStore, build_global_cache, trunc_probe
-from .mapping import (FUSED, KeyframeBuffer, MappingConfig, map_frame,
+from .mapping import (FUSED, SLOTS, KeyframeBuffer, MappingConfig, map_frame,
                       map_frame_binned)
 from .p2p import P2PTarget, make_p2p_target
 from .selection import (find_earliest_keyframe, overlap_percents,
@@ -1068,7 +1068,7 @@ class VTGaussianSLAM:
                                 frame_ids=[start + r for r in range(self.bfe)])
             draws = (self.map_draws(t, mcfg.num_iters, count)
                      if self.map_draws is not None else None)
-            fused = FUSED.iters
+            fused, slotted = FUSED.iters, SLOTS.iters
             with trace.span("map.loop"):
                 new_params, hist = self._map_binned_fn(
                     sec.params, kf, slots, slot_ids, self.cam, mcfg,
@@ -1078,6 +1078,7 @@ class VTGaussianSLAM:
                 self._sync()
             trace.count("map.iters", mcfg.num_iters)
             trace.count("map.loss_fused", FUSED.iters - fused)
+            trace.count("map.slot_kernels", SLOTS.iters - slotted)
         self.sections[bf_idx] = sec.replace(params=new_params)
         if hist is not None:
             # (num_iters, 3) [total, im, depth]: one device read per frame
@@ -1110,7 +1111,7 @@ class VTGaussianSLAM:
             fixed_params, fixed_active = self._fixed_concat()
         draws = (self.map_draws(t, mcfg.num_iters, count)
                  if self.map_draws is not None else None)
-        fused = FUSED.iters
+        fused, slotted = FUSED.iters, SLOTS.iters
         with self.trace.span("map.loop"):
             new_params, hist = map_frame(sec.params, sec.active_mask(), kf,
                                          self.cam, mcfg, draws=draws,
@@ -1122,6 +1123,7 @@ class VTGaussianSLAM:
             self._sync()
         self.trace.count("map.iters", mcfg.num_iters)
         self.trace.count("map.loss_fused", FUSED.iters - fused)
+        self.trace.count("map.slot_kernels", SLOTS.iters - slotted)
         return new_params, hist
 
     # ------------------------------------------------------------------

@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build"
-SOURCES = ("splat", "blend", "maploss")
+SOURCES = ("splat", "blend", "maploss", "slots")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # exported symbol -> ctypes argument types (pointers and the stream as
 # c_void_p: a default int argument would cut a 64-bit pointer; a None
 # pointer is NULL, as the tile-id operand takes it)
@@ -53,6 +54,10 @@ SIGNATURES = {
         "vtgs_map_loss_fwd": (_VP,) * 5 + (_I,) * 9 + (_F, _F) + (_VP,) * 9,
         "vtgs_map_loss_bwd": (_VP, _VP, _F, _F, _VP, _VP, _I, _I, _VP, _VP,
                               _VP),
+    },
+    "slots": {
+        "vtgs_slot_gather": (_VP,) * 3 + (_I, _I, _VP, _VP),
+        "vtgs_slot_inverse": (_VP,) * 3 + (_I, _LL, _VP, _VP),
     },
 }
 

@@ -52,8 +52,8 @@ from ..core.mapping import map_binned_loop
 from ..core.track_cache import TrackCache, accum_result
 from ..core.tracking import track_loop
 from ..ops import geometry as geo
-from ..ops.rasterizer.binning import (BLOCK, SlotInv, apply_slot_inverse,
-                                      gather_channels)
+from ..ops.rasterizer.binning import BLOCK, SlotInv
+from ..ops.rasterizer.cuda_slots import slot_gather, slot_inverse_sum
 from ..ops.rasterizer.cuda_splat import (splat_backward_pose,
                                          splat_backward_vals_rows,
                                          splat_forward)
@@ -198,7 +198,7 @@ class SplatBinnedSharded(torch.autograd.Function):
         tiles_x = -(-cam.width // 16)
         lo, Tl = shard_rows(tab.shape[0], group)
         R9 = geo.quat_to_rotmat(geo.normalize(quat)).reshape(9)
-        slots = gather_channels(f8, tab[lo:lo + Tl])
+        slots = slot_gather(f8, tab[lo:lo + Tl], counts[lo:lo + Tl])
         acc = splat_forward(slots, R9, trans, counts[lo:lo + Tl], cam,
                             tiles_x, tile_offset=lo)
         ctx.save_for_backward(slots, R9, trans, acc, inv_pos, inv_w)
@@ -214,7 +214,7 @@ class SplatBinnedSharded(torch.autograd.Function):
                                         g[lo:lo + Tl], cam, tiles_x,
                                         tile_offset=lo)
         flat = all_gather_rows(rows, group).reshape(-1, 8)
-        g_tail = apply_slot_inverse(flat, SlotInv(inv_pos, inv_w))
+        g_tail = slot_inverse_sum(flat, inv_pos, inv_w)
         Ng = inv_pos.shape[0]
         if Ng < M:
             g_tail = torch.cat([g_tail.new_zeros((M - Ng, 8)), g_tail])
