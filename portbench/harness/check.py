@@ -2,7 +2,11 @@
 step by the plain reference (`portbench/reference`) from the program's own
 state, and each number beside its limit.
 
-For each frame that `Capture` sampled:
+The sampled frames (`session.check_frames`) are the same stages on every
+seed, for every scene family: a frame drawn from the seed that is no
+section boundary, whose tracking loop is split and followed, and the
+first section boundary, which spawns a section and builds the global
+binning. For each frame that `Capture` sampled:
 
 - tracking: the reference bins the section at the frame's start pose
   itself, then takes the loop's first three iterations (plain K1, the

@@ -61,17 +61,17 @@ def engine_config(cell: Cell, seq_dir: str) -> dict:
 
 
 def check_frames(cfg: dict, seed: int, first: int) -> list[int]:
-    """The frames the check samples: one drawn from the seed among
-    `first` to `first` + 2, and for a Replica-style configuration the
-    first section boundary from `first` on."""
-    rng = np.random.default_rng([int(seed), 11])
-    frames = [first + int(rng.integers(0, 3))]
+    """The frames the check samples, so that every run of a configuration
+    checks the same stages whatever its seed and scene family: one drawn
+    from the seed among the first three frames from `first` on that are
+    not section boundaries (its tracking, densification and mapping), and
+    the first section boundary from `first` on (its spawn, and its mapping
+    over the global binning that the boundary's new frozen sections make
+    it build)."""
     bfe = int(cfg["baseframe_every"])
-    if cfg.get("selection_style", "replica") == "replica":
-        b = bfe * -(-first // bfe)
-        if b not in frames:
-            frames.append(b)
-    return frames
+    rng = np.random.default_rng([int(seed), 11])
+    inner = [t for t in range(first, first + 6) if t % bfe][:3]
+    return [inner[int(rng.integers(0, 3))], bfe * -(-first // bfe)]
 
 
 def _phases(times: dict) -> list[tuple[str, float]]:

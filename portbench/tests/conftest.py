@@ -28,12 +28,8 @@ def fr1_root(tmp_path_factory) -> str:
     bench["configs"].append(FR1_CONFIG)
     bench["workloads"].append(FR1_CELL)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    limits = json.loads((root / "portbench" / "limits" /
-                         "room0.scan.json").read_text())
-    for k in ("spawn_rows", "global_tables"):    # no boundary is sampled
-        del limits[k]
-    (root / "portbench" / "limits" / "fr1.desk.json").write_text(
-        json.dumps(limits))
+    shutil.copy(root / "portbench" / "limits" / "room0.scan.json",
+                root / "portbench" / "limits" / "fr1.desk.json")
     return str(root)
 
 

@@ -1,7 +1,7 @@
 """A cell of the benchmark cut to a size a CPU test can run: the same
 configuration and mix at 24 x 32 pixels, four tracking and mapping
-iterations, Replica-style sections of three frames, a fixed pair
-budget, 16 frames.
+iterations, sections of three frames in every scene family, a fixed
+pair budget, 16 frames.
 The port runs its plain PyTorch versions of the kernels there."""
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ def tiny_cell(name: str, root: str | None = None):
                      densification_image_width=2 * W)
     c["tracking"].update(num_iters=4, base1_num_iters=4)
     c["mapping"]["num_iters"] = 4
-    if c.get("selection_style") == "replica":
-        c["baseframe_every"] = 3    # a boundary at frame 3
+    c["baseframe_every"] = 3        # a boundary at frame 3
+    if c.get("overlap_every"):      # TUM's selection needs at least one
+        c["overlap_every"] = 1      # overlap frame a section
     c.setdefault("tpu", {}).update(map_binned=True, max_pairs_per_tile=128,
                                    auto_pair_budget=False)
     return dataclasses.replace(cell, config=cfg,
